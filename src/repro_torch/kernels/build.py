@@ -1,0 +1,115 @@
+"""Build and load the port's CUDA kernels (plain C interface, ``ctypes``).
+
+The sources under ``csrc/`` are compiled at first use for Hopper
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+linked into one shared library under ``<repo>/build/repro_torch/<hash>/``.
+The hash covers the sources and the flags, so an edited source is rebuilt
+and an unchanged one is loaded as it is.  A build failure raises with the
+compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+SOURCES = ("scalegate_merge.cu", "segment_aggregate.cu", "window_join.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LIB_NAME = "librepro_torch_kernels.so"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+PROTOTYPES = {
+    # tau, src, valid, n, n_sources, order, ready, wmark, stream
+    "repro_scalegate_merge": (_P, _P, _P, _I, _I, _P, _P, _P, _P),
+    # keys, slots, vals, acc, n, w, k, s, stream
+    "repro_segment_aggregate": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # new_tau, new_src, new_pay, b, p, st_tau, st_src, st_pay, k, r,
+    # ws, band, n_attrs, counts, comps, stream
+    "repro_window_join": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I,
+                          ctypes.c_float, _I, _P, _P, _P),
+}
+
+
+def build_root() -> pathlib.Path:
+    """``build/repro_torch`` at the root of the checkout."""
+    return CSRC.parents[3] / "build" / "repro_torch"
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.iterdir()):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> pathlib.Path:
+    """Compile the sources (if not already built) and return the library."""
+    out = build_root() / _digest()
+    lib = out / LIB_NAME
+    if lib.exists():
+        return lib
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = [(src, subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(out / f"{src}.o")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for src in SOURCES]
+    log = []
+    try:
+        for src, proc in procs:
+            text, _ = proc.communicate()
+            log.append(f"== {src} (rc {proc.returncode})\n{text}")
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed on {src}:\n{text}")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    tmp = out / f"tmp_{LIB_NAME}"
+    link = subprocess.run(
+        [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp),
+         *(str(out / f"{src}.o") for src in SOURCES)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    log.append(f"== link (rc {link.returncode})\n{link.stdout}")
+    (out / "build.log").write_text(
+        "\n".join(log) + f"\nbuild seconds: {time.perf_counter() - t0:.3f}\n")
+    if link.returncode:
+        raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in PROTOTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def raise_on_error(name: str, rc: int) -> None:
+    """Raise if a launcher returned a nonzero ``cudaGetLastError()``."""
+    if rc:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
