@@ -83,7 +83,7 @@ def _from_np(template, d, device):
     if isinstance(template, dict):
         return {k: _from_np(v, _field(d, k), device)
                 for k, v in template.items()}
-    return torch.as_tensor(np.asarray(d), dtype=template.dtype, device=device)
+    return torch.tensor(np.asarray(d), dtype=template.dtype, device=device)
 
 
 def _field(d, name):

@@ -163,12 +163,12 @@ def export_np(state: ScaleGateState) -> dict:
 def import_np(d: dict, device=None) -> ScaleGateState:
     dev = _device.resolve(device)
     stash = T.TupleBatch(**{
-        f: torch.as_tensor(np.asarray(d["stash"][f]), dtype=dtype, device=dev)
+        f: torch.tensor(np.asarray(d["stash"][f]), dtype=dtype, device=dev)
         for f, dtype in T.DTYPES.items()})
     return ScaleGateState(
         stash=stash, wmark=wm.import_np(d["wmark"], dev),
-        overflow=torch.as_tensor(np.asarray(d["overflow"]), dtype=torch.int32,
-                                 device=dev))
+        overflow=torch.tensor(np.asarray(d["overflow"]), dtype=torch.int32,
+                              device=dev))
 
 
 def template_np(n_sources: int, capacity: int, kmax: int,

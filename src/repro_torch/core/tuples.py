@@ -63,7 +63,7 @@ class TupleBatch:
 def _tensor(x, dtype, dev) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=dev, dtype=dtype)
-    return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+    return torch.tensor(np.asarray(x), dtype=dtype, device=dev)
 
 
 def make_batch(tau, payload, keys=None, source=None, valid=None,

@@ -39,7 +39,7 @@ def init_watermark(n_sources: int, active=None, device=None) -> WatermarkState:
         active = np.ones((n_sources,), bool)
     return WatermarkState(
         frontier=torch.zeros((n_sources,), dtype=torch.int32, device=dev),
-        active=torch.as_tensor(np.asarray(active), dtype=torch.bool,
+        active=torch.tensor(np.asarray(active), dtype=torch.bool,
                                device=dev))
 
 
@@ -99,7 +99,7 @@ def export_np(state: WatermarkState) -> dict:
 def import_np(d: dict, device=None) -> WatermarkState:
     dev = _device.resolve(device)
     return WatermarkState(
-        frontier=torch.as_tensor(np.asarray(d["frontier"]),
+        frontier=torch.tensor(np.asarray(d["frontier"]),
                                  dtype=torch.int32, device=dev),
-        active=torch.as_tensor(np.asarray(d["active"]), dtype=torch.bool,
+        active=torch.tensor(np.asarray(d["active"]), dtype=torch.bool,
                                device=dev))
