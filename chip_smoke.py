@@ -19,15 +19,19 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
                  the switch equals VSN and moves bytes.
 4. ``q3_scalejoin`` — the ScaleJoin fast path in ``VSNPipeline`` plus the
                  ``window_join`` counting path each tick, equal to the CPU
-                 run as unordered output pairs, comparisons and counts.
+                 run as unordered output pairs, in total comparisons, and
+                 in matches per incoming tuple (the card merges equal-tau
+                 tuples in arrival order, the CPU by source first, so the
+                 round-robin ring layout, and with it the per-key-row
+                 counts, may differ).
 
-The launch counts are zeroed right before phase 3 and read after phase 4:
-the ``{"kernels": [...]}`` line reports them with phase 2's times.  The
-last line is ``{"ok": true, "device": {...}}``.  Times are medians of
-CUDA-event timings over 20 runs after warm-up.
+Phases 3 and 4 are the main path: each zeroes the launch counts right
+before its card run and reads them right after, and the ``{"kernels":
+[...]}`` line reports their sum with phase 2's times.  The last line is
+``{"ok": true, "device": {...}}``.  Times are medians of CUDA-event
+timings over 20 runs after warm-up.
 """
 
-import dataclasses
 import functools
 import json
 import math
@@ -345,6 +349,19 @@ def q1_wordcount(dev):
             raise AssertionError(f"q1 tick {i}: SN outputs differ from VSN")
     assert sn_pipe.bytes_transferred > 0
 
+    # A separate run, so the profiler does not touch the timed ticks above:
+    # ticks 24-27 (16 active instances) under torch.profiler.
+    prof_pipe = VSNPipeline(op, n_max=N_MAX, n_active=4, stash_cap=TICK,
+                            tick_fn=lambda o, s, r, m, explicit_w=None:
+                            agg.tick_fast(o, "count", s, r, m),
+                            merge_fn=merge_fast_state,
+                            init_sigma=functools.partial(agg.fast_init, op),
+                            device=dev)
+    for i in range(24):
+        prof_pipe.step(batches[i], reconfig=rc if i == RC_AT else None)
+    torch.cuda.synchronize()
+    profile = device_profile(lambda i: prof_pipe.step(batches[24 + i]), 4)
+
     steady = [g["seconds"] for i, g in enumerate(gpu) if i not in (0, *sw_ticks)]
     return dict(
         phase="q1_wordcount", ticks=N_TICKS, tick_tuples=TICK, k_virt=K,
@@ -357,7 +374,38 @@ def q1_wordcount(dev):
         vsn_switch_table_bytes=pipe.switch_bytes(),
         sn_prefix_ticks=n_sn, sn_equal_to_vsn=True,
         sn_bytes_transferred=sn_pipe.bytes_transferred,
-        cpu_run_seconds=cpu_seconds, launches=launches)
+        cpu_run_seconds=cpu_seconds, profile=profile, launches=launches)
+
+
+def device_profile(step, n: int) -> dict:
+    """``step(i)`` for i < n under torch.profiler: host wall time per tick,
+    the share of it the device spent in kernels and copies, device
+    operations and host synchronizations per tick, and the kernels that
+    took the most device time.  Device numbers are None when the profiler
+    recorded no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            step(i)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    dev_ev = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    syncs = sum(1 for e in events if "Synchronize" in e.name)
+    by_name = {}
+    for e in dev_ev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_us = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(
+        ticks=n, wall_ms_per_tick=wall_us / n / 1e3,
+        device_busy_share=(busy_us / wall_us) if dev_ev else None,
+        device_ops_per_tick=len(dev_ev) / n if dev_ev else None,
+        host_syncs_per_tick=syncs / n,
+        top_device_ms_per_tick=[(name[:60], us / n / 1e3) for name, us in top])
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,7 @@ instance of a tick, so no instance may write into it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Tuple
 
 import torch
 
@@ -63,10 +63,6 @@ class Outputs:
     valid: torch.Tensor     # bool[cap]
     count: torch.Tensor     # i32[] number of valid lanes
     overflow: torch.Tensor  # i32[] outputs dropped (buffer too small)
-
-    def as_batch(self, kmax: int = 1) -> T.TupleBatch:
-        return T.make_batch(self.tau, self.payload, valid=self.valid,
-                            kmax=kmax, device=self.tau.device)
 
 
 def _empty_outputs(cap: int, p: int, device) -> Outputs:
@@ -110,19 +106,6 @@ def _emit(outs: Outputs, tau, payload: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Table-1 default behaviours
 # ---------------------------------------------------------------------------
-
-def tuple_store_init(k: int, n_slots: int, ring: int, p: int, device=None):
-    """Default zeta: bounded per-(key,slot) tuple ring (Table 1 f_U default)."""
-    dev = _device.resolve(device)
-    i32 = dict(dtype=torch.int32, device=dev)
-    return {
-        "tau": torch.full((k, n_slots, ring), -1, **i32),
-        "payload": torch.zeros((k, n_slots, ring, p), dtype=torch.float32,
-                               device=dev),
-        "source": torch.zeros((k, n_slots, ring), **i32),
-        "count": torch.zeros((k, n_slots), **i32),
-    }
-
 
 def _set_at(a: torch.Tensor, rows, cols, v) -> torch.Tensor:
     new = a.clone()

@@ -90,6 +90,33 @@ def _field(d, name):
     return d[name] if isinstance(d, dict) else getattr(d, name)
 
 
+def _initial_epoch(k_virt: int, n_active: int, n_max: int,
+                   device) -> elastic.EpochState:
+    """Keys round-robin over the first ``n_active`` of ``n_max`` instances."""
+    fmu = torch.as_tensor(np.arange(k_virt) % n_active, dtype=torch.int32,
+                          device=device)
+    active = torch.as_tensor(np.arange(n_max) < n_active, device=device)
+    return elastic.init_epoch(fmu, active)
+
+
+def _with_ctrl(pipe, staged: T.TupleBatch, reconfig, frontier):
+    """The tick as pushed, and the tables it carries: ``staged`` plus
+    ``n_inputs`` control lanes stamped with each source's last forwarded
+    tau (a reconfiguration), or all-invalid pad lanes (none)."""
+    n, kmax, p = pipe.op.n_inputs, staged.kmax, staged.payload_width
+    if reconfig is None:
+        return (T.concat(staged, T.empty_batch(n, kmax, p, pipe.device)),
+                pipe.epoch.fmu, pipe.epoch.active)
+    if frontier is None:
+        frontier = pipe.sg.wmark.frontier.cpu().numpy()
+    ctrl = ctrl_lanes(n, frontier, reconfig.epoch, kmax, p, pipe.device)
+    return (T.concat(staged, ctrl),
+            torch.as_tensor(reconfig.fmu, dtype=torch.int32,
+                            device=pipe.device),
+            torch.as_tensor(reconfig.active, dtype=torch.bool,
+                            device=pipe.device))
+
+
 @dataclasses.dataclass
 class VSNPipeline:
     op: OperatorDef
@@ -104,12 +131,8 @@ class VSNPipeline:
     def __post_init__(self):
         self.device = _device.resolve(self.device)
         self.op = self.op.resolved()
-        k = self.op.k_virt
-        fmu = torch.as_tensor(np.arange(k) % self.n_active, dtype=torch.int32,
-                              device=self.device)
-        active = torch.as_tensor(np.arange(self.n_max) < self.n_active,
-                                 device=self.device)
-        self.epoch = elastic.init_epoch(fmu, active)
+        self.epoch = _initial_epoch(self.op.k_virt, self.n_active, self.n_max,
+                                    self.device)
         self.sigma = (self.init_sigma or self.op.init_state)(self.device)
         self.sg = None                  # shaped by the first tick
         self._tick = self.tick_fn or general_tick
@@ -185,22 +208,8 @@ class VSNPipeline:
         switched, inst_load)``.  ``frontier`` (host i32[n_inputs]: last
         forwarded tau per source) stamps control tuples without reading the
         gate's frontier back from the device."""
-        staged = self.stage(staged)
-        if reconfig is not None:
-            if frontier is None:
-                frontier = self.sg.wmark.frontier.cpu().numpy()
-            incoming = T.concat(staged, ctrl_lanes(
-                self.op.n_inputs, frontier, reconfig.epoch, staged.kmax,
-                staged.payload_width, self.device))
-            fmu_new = torch.as_tensor(reconfig.fmu, dtype=torch.int32,
-                                      device=self.device)
-            active_new = torch.as_tensor(reconfig.active, dtype=torch.bool,
-                                         device=self.device)
-        else:
-            incoming = T.concat(staged, T.empty_batch(
-                self.op.n_inputs, staged.kmax, staged.payload_width,
-                self.device))
-            fmu_new, active_new = self.epoch.fmu, self.epoch.active
+        incoming, fmu_new, active_new = _with_ctrl(
+            self, self.stage(staged), reconfig, frontier)
         (self.sg, self.epoch, self.sigma, outs1, outs2, switched, _wmk,
          inst_load) = vsn.pipeline_tick(self.sg, self.epoch, self.sigma,
                                         incoming, fmu_new, active_new,
@@ -234,12 +243,8 @@ class SNPipeline:
     def __post_init__(self):
         self.device = _device.resolve(self.device)
         self.op = self.op.resolved()
-        k = self.op.k_virt
-        fmu = torch.as_tensor(np.arange(k) % self.n_active, dtype=torch.int32,
-                              device=self.device)
-        active = torch.as_tensor(np.arange(self.n_max) < self.n_active,
-                                 device=self.device)
-        self.epoch = elastic.init_epoch(fmu, active)
+        self.epoch = _initial_epoch(self.op.k_virt, self.n_active, self.n_max,
+                                    self.device)
         one = (self.init_sigma or self.op.init_state)(self.device)
         self.sigmas = sn.init_states(one, self.n_max)
         self._tick = self.tick_fn or general_tick
@@ -254,20 +259,8 @@ class SNPipeline:
             self.sg = scalegate.init_scalegate(
                 self.op.n_inputs, self.stash_cap, incoming.kmax,
                 incoming.payload_width, device=self.device)
-        if reconfig is not None:
-            frontier = self.sg.wmark.frontier.cpu().numpy()
-            incoming = T.concat(incoming, ctrl_lanes(
-                self.op.n_inputs, frontier, reconfig.epoch, incoming.kmax,
-                incoming.payload_width, self.device))
-            fmu_new = torch.as_tensor(reconfig.fmu, dtype=torch.int32,
-                                      device=self.device)
-            active_new = torch.as_tensor(reconfig.active, dtype=torch.bool,
-                                         device=self.device)
-        else:
-            incoming = T.concat(incoming, T.empty_batch(
-                self.op.n_inputs, incoming.kmax, incoming.payload_width,
-                self.device))
-            fmu_new, active_new = self.epoch.fmu, self.epoch.active
+        incoming, fmu_new, active_new = _with_ctrl(self, incoming, reconfig,
+                                                   None)
 
         self.sg, ready = scalegate.push(self.sg, incoming)
         epoch = elastic.prepare_reconfig(self.epoch, ready, fmu_new,

@@ -51,9 +51,6 @@ class TupleBatch:
     def device(self) -> torch.device:
         return self.tau.device
 
-    def num_valid(self) -> torch.Tensor:
-        return self.valid.sum(dtype=torch.int32)
-
     def to(self, device, non_blocking: bool = False) -> "TupleBatch":
         return TupleBatch(**{f: getattr(self, f).to(device,
                                                      non_blocking=non_blocking)

@@ -10,6 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax
 import jax.numpy as jnp
 
 from _torch_bridge import assert_tree_equal, np_tree, to_port
@@ -27,6 +28,7 @@ from repro_torch.core import scalegate as PSG
 from repro_torch.core import tuples as PT
 from repro_torch.core import watermark as PW
 from repro_torch.core.operator import tick as p_tick
+from repro_torch.core.vsn import stack
 from repro_torch.core.windows import WindowSpec as PWS
 from repro_torch.data import datagen as pdg
 from repro_torch.io.sinks import flatten_outputs
@@ -296,3 +298,99 @@ def test_scalejoin_general_tick_matches_reference():
         assert_tree_equal(np_tree(js), np_tree(ps))
         matches += int(po.count)
     assert matches > 0
+
+
+# ------------------------------------------------- smaller ported pieces
+def test_table1_defaults_match_reference():
+    """An operator with no user functions gets Table 1's defaults (store
+    each tuple, emit nothing, purge stale tuples on slide)."""
+    from repro.core.operator import OperatorDef as JOp
+    from repro.core.operator import tuple_store_init
+    from repro_torch.core.operator import OperatorDef as POp
+    k, ring, p = 4, 3, 2
+    jop = JOp(window=JWS(10, 20, "single"), n_inputs=1, k_virt=k,
+              payload_out=p, init_zeta=lambda: tuple_store_init(k, 1, ring, p),
+              out_cap=16)
+
+    def init_zeta(device):
+        return {name: torch.from_numpy(np.array(a)).to(device)
+                for name, a in tuple_store_init(k, 1, ring, p).items()}
+
+    pop = POp(window=PWS(10, 20, "single"), n_inputs=1, k_virt=k,
+              payload_out=p, init_zeta=init_zeta, out_cap=16)
+    resp = np.arange(k) != 2
+    js, ps = jop.resolved().init_state(), pop.resolved().init_state(CPU)
+    for b in _agg_stream(np.random.default_rng(2), n_ticks=3, tick=6, k=k,
+                         kmax=2, width=p):
+        js, jo = j_tick(jop, js, b, jnp.asarray(resp), explicit_w=None)
+        ps, po = p_tick(pop, ps, to_port(b), torch.from_numpy(resp))
+        assert_tree_equal(np_tree(jo), np_tree(po))
+        assert_tree_equal(np_tree(js), np_tree(ps))
+    assert int((ps.zeta["tau"] >= 0).sum()) > 0
+
+
+def test_hedge_predicate_matches_reference():
+    rng = np.random.default_rng(6)
+    pl = rng.normal(0, 0.05, (40, 2)).astype(np.float32)
+    pr = (-pl * rng.uniform(0.9, 1.1, (40, 2))).astype(np.float32)
+    pl[:, 0] = rng.integers(0, 3, 40)
+    pr[:, 0] = rng.integers(0, 3, 40)
+    pl[::7, 1] = 0.0                                   # the 1e-9 guard
+    want = np.asarray(JJ.hedge_predicate()(jnp.asarray(pl), jnp.asarray(pr)))
+    got = PJ.hedge_predicate()(torch.from_numpy(pl), torch.from_numpy(pr))
+    np.testing.assert_array_equal(want, got.numpy())
+    assert want.any() and not want.all()
+
+
+def test_fold_frontier_and_ctrl_lanes_match_reference():
+    from repro.core import runtime as JR
+    from repro_torch.core import runtime as PR
+    rng = np.random.default_rng(8)
+    jf, pf = np.zeros(3, np.int64), np.zeros(3, np.int64)
+    for b in _source_stream(rng, 3, 10, 3):
+        JR.fold_frontier(jf, b, 3)
+        PR.fold_frontier(pf, to_port(b), 3)
+    np.testing.assert_array_equal(jf, pf)
+    assert_tree_equal(np_tree(JR.ctrl_lanes(3, jf, 2, 2, 2)),
+                      np_tree(PR.ctrl_lanes(3, pf, 2, 2, 2, CPU)))
+
+
+def test_scalegate_sources_and_template_match_reference():
+    mask = np.array([False, True, False])
+    js = JSG.remove_sources(JSG.init_scalegate(3, 4, 2, 2), mask)
+    ps = PSG.remove_sources(PSG.init_scalegate(3, 4, 2, 2, device=CPU),
+                            torch.from_numpy(mask))
+    assert_tree_equal(np_tree(js), np_tree(ps))
+    js = JSG.add_sources(js, mask, 11)
+    ps = PSG.add_sources(ps, torch.from_numpy(mask), 11)
+    assert_tree_equal(np_tree(js), np_tree(ps))
+    assert_tree_equal(JSG.template_np(3, 4, 2, 2), PSG.template_np(3, 4, 2, 2))
+
+
+def test_flatten_outputs_and_collect_sink_match_reference():
+    """The executors' per-instance output merge and the parity sink."""
+    from repro.core.vsn import flatten_outputs as j_vflat
+    from repro.io.sinks import CollectSink as JSink
+    from repro_torch.core.vsn import flatten_outputs as p_vflat
+    from repro_torch.io.sinks import CollectSink as PSink
+    jop, pop = _ops("count", 8, out_cap=16)
+    jop, pop = jop.resolved(), pop.resolved()
+    jsink, psink = JSink(), PSink()
+    js, ps = jop.init_state(), pop.init_state(CPU)
+    for i, b in enumerate(_agg_stream(np.random.default_rng(3))):
+        j_outs, p_outs = [], []
+        for inst in range(2):
+            resp = np.arange(8) % 2 == inst
+            j_outs.append(j_tick(jop, js, b, jnp.asarray(resp))[1])
+            p_outs.append(p_tick(pop, ps, to_port(b),
+                                 torch.from_numpy(resp))[1])
+        js = j_tick(jop, js, b, jnp.ones(8, bool))[0]
+        ps = p_tick(pop, ps, to_port(b), torch.ones(8, dtype=torch.bool))[0]
+        j_st = jax.tree.map(lambda *xs: jnp.stack(xs), *j_outs)
+        p_st = stack(p_outs)
+        assert_tree_equal(np_tree(j_vflat(j_st)), np_tree(p_vflat(p_st)))
+        jsink.accept(i, j_st, j_outs[0])
+        psink.accept(i, p_st, p_outs[0])
+    assert psink.results() == jsink.results() and psink.results()
+    assert psink.results(since_tick=1, before_tick=2) == \
+        jsink.results(since_tick=1, before_tick=2)
