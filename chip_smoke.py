@@ -245,6 +245,7 @@ def check_window_join(dev):
     compare("bench", args, ws.ws)
     for nb in (500, 37):                           # B not a multiple of 32
         compare(f"b{nb}", tuple(a[:nb] for a in args[:3]) + args[3:], ws.ws)
+    compare("k1000", args[:3] + tuple(a[:1000] for a in args[3:]), ws.ws)
     kernel_ms = median_ms(lambda: window_join_op(*args, ws=ws.ws, **kw))
     plain_ms = median_ms(lambda: window_join_ref(*args, ws=ws.ws, **kw))
     _, comps = window_join_op(*args, ws=ws.ws, **kw)
@@ -255,7 +256,7 @@ def check_window_join(dev):
     # a subtract, abs and compare per attribute of each opposite pair (fp)
     ms, by = bound(bsz * 16 + k * r * 16 + bsz * k * 4 + 8,
                    int_ops=4 * pairs, fp_ops=3 * 2 * int(comps))
-    return dict(name="window_join", cases=4, max_abs_err=0.0,
+    return dict(name="window_join", cases=5, max_abs_err=0.0,
                 shape=f"B={bsz}, K={k}, R={r}, P=4, n_attrs=2, "
                       f"stored={stored}, comps={int(comps)}",
                 ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
@@ -380,8 +381,8 @@ def q1_wordcount(dev):
 def device_profile(step, n: int) -> dict:
     """``step(i)`` for i < n under torch.profiler: host wall time per tick,
     the share of it the device spent in kernels and copies, device
-    operations and host synchronizations per tick, and the kernels that
-    took the most device time.  Device numbers are None when the profiler
+    operations per tick, host synchronizations per tick and the host time
+    blocked in them, and the kernels that took the most device time.  Device numbers are None when the profiler
     recorded no device activity."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -394,7 +395,7 @@ def device_profile(step, n: int) -> dict:
     events = prof.events()
     dev_ev = [e for e in events
               if e.device_type == torch.autograd.DeviceType.CUDA]
-    syncs = sum(1 for e in events if "Synchronize" in e.name)
+    sync_ev = [e for e in events if "Synchronize" in e.name]
     by_name = {}
     for e in dev_ev:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -404,7 +405,9 @@ def device_profile(step, n: int) -> dict:
         ticks=n, wall_ms_per_tick=wall_us / n / 1e3,
         device_busy_share=(busy_us / wall_us) if dev_ev else None,
         device_ops_per_tick=len(dev_ev) / n if dev_ev else None,
-        host_syncs_per_tick=syncs / n,
+        host_syncs_per_tick=len(sync_ev) / n,
+        host_sync_ms_per_tick=sum(e.time_range.elapsed_us()
+                                  for e in sync_ev) / n / 1e3,
         top_device_ms_per_tick=[(name[:60], us / n / 1e3) for name, us in top])
 
 

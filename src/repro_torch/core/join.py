@@ -215,16 +215,16 @@ def tick_fast(window: WindowSpec, f_j: Callable, st: FastJoinState,
                      torch.ones_like(idx, dtype=torch.bool))
 
     # --- phase 3: store (round-robin, one key per tuple) -------------------
+    # Non-live lanes go to one past the end, which _put and index_add drop.
     pos = (st.n[store_key] % ring).long()
-    row = torch.where(live_in, store_key, k_virt)        # k_virt: dropped
+    row = torch.where(live_in, store_key, k_virt)
+    cell = torch.where(live_in, store_key * ring + pos, k_virt * ring)
 
     def store(a, v):
-        return _put(a.reshape((k_virt * ring,) + a.shape[2:]),
-                    torch.where(live_in, row * ring + pos, k_virt * ring), v
-                    ).reshape(a.shape)
+        flat = a.reshape((k_virt * ring,) + a.shape[2:])
+        return _put(flat, cell, v).reshape(a.shape)
 
-    n = torch.cat([st.n, st.n.new_zeros(1)]).index_add(
-        0, row, li)[:k_virt]
+    n = torch.cat([st.n, st.n.new_zeros(1)]).index_add(0, row, li)[:k_virt]
     st = FastJoinState(
         tau=store(st.tau, ready.tau),
         pay=store(st.pay, ready.payload),
