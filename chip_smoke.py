@@ -5,13 +5,14 @@
 
 Phases, in order; each prints one JSON line and any failure exits nonzero:
 
-1. ``build``   — compile the three CUDA kernels from ``src/repro_torch/
+1. ``build``   — compile the CUDA kernels from ``src/repro_torch/
                  kernels/csrc`` (one ``nvcc`` per source, in parallel) and
                  print the card's name and power limit.
-2. ``kernels`` — hold each kernel against its plain PyTorch version on the
-                 card, exactly, at the pipeline's shapes and on edge cases,
-                 and time kernel, plain version, one library call where one
-                 computes the same function, and the card's bound.
+2. ``kernels`` — hold each of the four kernels against its plain PyTorch
+                 version on the card, exactly, at the main path's shapes and
+                 on edge cases, and time kernel, plain version, one library
+                 call where one computes the same function, and the card's
+                 bound.
 3. ``q1_wordcount`` — the Q1 wordcount VSN pipeline with a mid-stream
                  reconfiguration (4 -> 16 instances), equal to the same run
                  on the CPU (outputs, switch flags, instance loads), with 0
@@ -24,8 +25,16 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
                  tuples in arrival order, the CPU by source first, so the
                  round-robin ring layout, and with it the per-key-row
                  counts, may differ).
+5. ``q1_ingest_tier`` — the Q1 stream over 8 sources through the ingest
+                 tier (4 thread leaves, the fused root merge, one host
+                 joining and one leaving) into ``AsyncStreamRuntime`` over
+                 ``VSNPipeline`` with a threshold controller: every round
+                 totally ordered, the tier's tuples equal to one flat
+                 gate's, the outputs equal to a CPU ``run_sync`` replaying
+                 the card run's reconfigurations, 0 sigma bytes moved, and
+                 one stacked-merge launch per root round.
 
-Phases 3 and 4 are the main path: each zeroes the launch counts right
+Phases 3, 4 and 5 are the main path: each zeroes the launch counts right
 before its card run and reads them right after, and the ``{"kernels":
 [...]}`` line reports their sum with phase 2's times.  The last line is
 ``{"ok": true, "device": {...}}``.  Times are medians of CUDA-event
@@ -103,7 +112,9 @@ def check_scalegate_merge(dev):
     INF = torch.iinfo(torch.int32).max
     rng = np.random.default_rng(11)
     cases = []
-    for n in (2, 127, 128, 386, 513, 4097, 8192):
+    # 22,536 = the pipeline's buffer in a q1_ingest_tier round of 8 leaf
+    # rows (2048 + 20,480 + 8 lanes), past one shared-memory tile
+    for n in (2, 127, 128, 386, 513, 4097, 8192, 16384, 22536, 2 ** 20):
         tau = np.sort(rng.integers(0, 5 * n, n)).astype(np.int32)
         src = rng.integers(0, 3, n).astype(np.int32)
         cases.append((f"random_n{n}", tau, src, rng.random(n) < 0.9, 3))
@@ -146,6 +157,78 @@ def check_scalegate_merge(dev):
                    int_ops=n * math.ceil(math.log2(n)))
     return dict(name="scalegate_merge", cases=len(cases), max_abs_err=0.0,
                 shape=f"N={n}, n_sources=1", ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=ms, bound_by=by)
+
+
+def check_scalegate_merge_stacked(dev):
+    from repro_torch.kernels.scalegate_merge.ops import \
+        scalegate_merge_stacked_op
+    from repro_torch.kernels.scalegate_merge.ref import \
+        scalegate_merge_stacked_ref
+    INF = np.iinfo(np.int32).max
+    rng = np.random.default_rng(13)
+    C = 2048
+
+    def root_round(rows, n_reports=8, active=5):
+        """Stash rows then leaf chunk rows: each a sorted run whose first
+        lanes are valid (a chunk padded with invalid lanes)."""
+        tau = np.sort(rng.integers(0, 40_000, (rows, C)), axis=1)
+        valid = np.arange(C)[None, :] < rng.integers(0, C + 1, (rows, 1))
+        reports = np.full(n_reports, INF, np.int64)
+        reports[:active] = rng.integers(10_000, 30_000, active)
+        return (tau.astype(np.int32), rng.integers(0, 8, (rows, C)), valid,
+                reports)
+
+    def fuzz(rows, c):                 # the reference test's rounds
+        tau = rng.integers(0, 40, (rows, c))
+        valid = rng.random((rows, c)) < 0.7
+        valid[rng.integers(rows)] = False
+        return tau, rng.integers(0, 4, (rows, c)), valid, \
+            rng.integers(5, 35, (rows,))
+
+    cases = {"root_12288": root_round(6), "root_20480": root_round(10),
+             "lanes_2^20": root_round(512)}
+    for rows, c in ((2, 32), (3, 32), (4, 48), (6, 96)):
+        cases[f"ref_{rows}x{c}"] = fuzz(rows, c)
+    tau, src, valid, reports = root_round(6)
+    cases["all_invalid"] = (tau, src, np.zeros_like(valid), reports)
+    cases["equal_tau"] = (np.full_like(tau, 7), src, valid,
+                          np.full(8, 7, np.int64))
+    cases["negative_tau"] = (
+        rng.integers(-2 ** 31, 2 ** 31 - 1, tau.shape, dtype=np.int64),
+        src, valid, reports)
+    cases["inf_reports"] = (tau, src, valid, np.full(8, INF, np.int64))
+    cases["reports_128"] = (tau, src, valid,
+                            rng.integers(0, 40_000, 128))
+    for name, (tau, src, valid, reports) in cases.items():
+        args = [torch.as_tensor(np.asarray(a, dtype), device=dev)
+                for a, dtype in ((tau, np.int32), (src, np.int32),
+                                 (valid, bool), (reports, np.int32))]
+        got = scalegate_merge_stacked_op(*args)
+        want = scalegate_merge_stacked_ref(*args)
+        for g, w_, what in zip(got, want, ("order", "ready", "wmark")):
+            if not torch.equal(g, w_):
+                raise AssertionError(f"scalegate_merge_stacked {name}: "
+                                     f"{what} differs")
+    # timing at the root's steady round: 4096 stash + 4 leaf rows of 2048
+    tau, src, valid, reports = (
+        torch.as_tensor(np.asarray(a, dtype), device=dev)
+        for a, dtype in zip(root_round(6), (np.int32, np.int32, bool,
+                                            np.int32)))
+    n, n_rep = tau.numel(), reports.numel()
+    key = ((torch.where(valid, tau, INF).to(torch.int64) + 2 ** 31) << 32) \
+        | torch.arange(n, device=dev).reshape(tau.shape)
+    kernel_ms = median_ms(lambda: scalegate_merge_stacked_op(tau, src, valid,
+                                                             reports))
+    plain_ms = median_ms(lambda: scalegate_merge_stacked_ref(tau, src, valid,
+                                                             reports))
+    library_ms = median_ms(lambda: torch.argsort(key.reshape(-1),
+                                                 stable=True))
+    ms, by = bound(n * (4 + 1) + n * 8 + 4 * n_rep,
+                   int_ops=n * math.ceil(math.log2(n)))
+    return dict(name="scalegate_merge_stacked", cases=len(cases),
+                max_abs_err=0.0, shape=f"[{tau.shape[0]}, {C}] = {n} lanes, "
+                f"{n_rep} reports", ms=kernel_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=ms, bound_by=by)
 
 
@@ -390,7 +473,8 @@ def device_profile(step, n: int) -> dict:
         t0 = time.perf_counter()
         for i in range(n):
             step(i)
-        torch.cuda.synchronize()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.events()
     dev_ev = [e for e in events
@@ -490,6 +574,160 @@ def q3_scalejoin(dev):
         equal_to_cpu_as_unordered_pairs=True, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 5: Q1 over the ingest tier (fused root) into AsyncStreamRuntime
+# ---------------------------------------------------------------------------
+
+def q1_ingest_tier(dev, n_ticks=40, tick=2048, join_at=12, leave_at=24):
+    """The defaults are the card's run; smaller arguments rehearse the same
+    phase on the CPU (``dev="cpu"``), where no kernel launches."""
+    from repro_torch.core import aggregate as agg
+    from repro_torch.core.async_runtime import AsyncStreamRuntime, run_sync
+    from repro_torch.core.controller import ThresholdController
+    from repro_torch.core.runtime import VSNPipeline
+    from repro_torch.core.vsn import merge_fast_state
+    from repro_torch.core.windows import WindowSpec
+    from repro_torch.data import datagen
+    from repro_torch.ingest import (IngestTier, collect_tuples, emitted_taus,
+                                    single_gate_stream)
+    from repro_torch.io.sinks import CollectSink
+    from repro_torch.io.sources import RateSchedule
+    from repro_torch.kernels import dispatch
+
+    K, N_MAX, N_SRC, N_LEAVES = 4096, 16, 8, 4
+    TICK, N_TICKS, LEAF_CAP, ROOT_CAP = tick, n_ticks, tick, 2 * tick
+    dev = torch.device(dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else lambda: None
+    op = agg.count_aggregate(WindowSpec(wa=1000, ws=2000, wt="multi"), K,
+                             out_cap=4096, extra_slots=2, n_inputs=N_SRC)
+    batches = list(datagen.tweets(
+        np.random.default_rng(7), n_ticks=N_TICKS, tick=TICK,
+        words_per_tweet=6, vocab=50000, k_virt=K, rate_per_tick=200,
+        n_sources=N_SRC, device="cpu"))
+    # offered rate: ~10k tweets/s, then a 60k/s burst that 4 instances of
+    # 2,500 t/s each cannot hold (the controller scales out)
+    sched = RateSchedule(((join_at, 6000.0), (N_TICKS, 60000.0)))
+
+    def tier(device, **kw):
+        t = IngestTier(batches, N_SRC, N_LEAVES, worker="thread",
+                       leaf_cap=LEAF_CAP, root_cap=ROOT_CAP, out_pad=TICK,
+                       root_device=True, schedule=sched, device=device, **kw)
+        t.add_host(at_tick=join_at)
+        t.remove_host(0, at_tick=leave_at)
+        return t
+
+    class Sink(CollectSink):
+        """Keeps the outputs' overflow counts on the device."""
+        def __init__(self):
+            super().__init__()
+            self.overflow = []
+
+        def accept(self, tick_id, o1, o2):
+            super().accept(tick_id, o1, o2)
+            self.overflow.append(o1.overflow.sum() + o2.overflow.sum())
+
+    def pipeline(device):
+        collisions = []
+
+        def count_tick(op_, st, ready, resp, explicit_w=None):
+            st, outs = agg.tick_fast(op_, "count", st, ready, resp,
+                                     explicit_w=explicit_w)
+            collisions.append(st.collisions)
+            return st, outs
+
+        pipe = VSNPipeline(op, n_max=N_MAX, n_active=4, stash_cap=TICK,
+                           tick_fn=count_tick, merge_fn=merge_fast_state,
+                           init_sigma=functools.partial(agg.fast_init, op),
+                           device=device)
+        return pipe, collisions
+
+    # (a) the tier alone: every round checked, against one flat gate
+    t = tier(dev, record=True, root_check_every=1)
+    t0 = time.perf_counter()
+    rounds = list(t)
+    sync()
+    tier_s = time.perf_counter() - t0
+    st = t.stats()
+    taus = emitted_taus(rounds)
+    assert (np.diff(taus) >= 0).all(), "the tier's stream lost total order"
+    oracle = single_gate_stream(batches, N_SRC, cap=ROOT_CAP + LEAF_CAP,
+                                device=dev)
+    if collect_tuples(rounds) != collect_tuples(oracle):
+        raise AssertionError("the tier's tuples differ from one flat gate's")
+    assert st.tuples_in == st.tuples_out == N_TICKS * TICK
+    assert st.total_overflow == 0 and len(st.leaves) == N_LEAVES
+    assert len(st.attach_ms) == len(st.detach_ms) == 1
+    lanes = sorted({r.batch for r in rounds})
+
+    # (b) the main path: the tier into the live runtime, controller on
+    ctl = ThresholdController(n_max=N_MAX, k_virt=K,
+                              capacity_per_instance=2500.0, n_active=4)
+    pipe, collisions = pipeline(dev)
+    sink = Sink()
+    t2 = tier(dev)
+    dispatch.reset_launches()
+    rt = AsyncStreamRuntime(pipe, t2, sink=sink, controller=ctl, queue_cap=4)
+    rep = rt.run()
+    sync()
+    launches = {k: v.launches for k, v in dispatch.registered().items()}
+    assert rep.switches >= 1, rep.summary()
+    assert t2.root.rounds == N_TICKS + 3     # ticks, join, leave, flush
+    if dev.type == "cuda":
+        assert launches["scalegate_merge_stacked"] == t2.root.rounds, \
+            (launches, t2.root.rounds)
+        assert launches["scalegate_merge"] > 0 and \
+            launches["segment_aggregate"] > 0, launches
+    assert pipe.bytes_transferred == 0
+    assert int(pipe.sg.overflow) == 0
+    assert int(torch.stack(sink.overflow).sum()) == 0
+    assert int(torch.stack(collisions).sum()) == 0
+    outs = sink.results()
+
+    # (c) the CPU twin: the same tier on the CPU, the card's trace replayed
+    t0 = time.perf_counter()
+    cpu_pipe, _ = pipeline("cpu")
+    cpu_rep, cpu_sink = run_sync(cpu_pipe, tier("cpu"),
+                                 reconfig_trace=rep.reconfig_trace)
+    cpu_seconds = time.perf_counter() - t0
+    if cpu_sink.results() != outs:
+        raise AssertionError("q1_ingest_tier: outputs differ from the CPU "
+                             "run")
+    assert cpu_rep.switches == rep.switches
+    assert cpu_rep.detect_to_switch_ticks == rep.detect_to_switch_ticks
+
+    # (d) where a round's time goes: the 4 rounds after the leave, tier
+    # and pipeline stepped in this thread under torch.profiler
+    prof_pipe, _ = pipeline(dev)
+    it = iter(tier(dev))
+    trace = dict(rep.reconfig_trace)
+    step = lambda i: prof_pipe.step_staged(next(it), reconfig=trace.get(i))
+    first = leave_at + 2                     # the leave's round is leave_at+1
+    for i in range(first):
+        step(i)
+    sync()
+    profile = device_profile(lambda i: step(first + i), 4)
+    for _ in it:                    # drain the tier so its threads stop
+        pass
+
+    return dict(
+        phase="q1_ingest_tier", ticks=N_TICKS, tick_tuples=TICK,
+        sources=N_SRC, leaves=N_LEAVES, root_rounds=t2.root.rounds,
+        root_lanes_per_round=lanes, tier_tuples=st.tuples_out,
+        tier_seconds=tier_s, tier_tuples_per_s=st.tuples_out / tier_s,
+        attach_ms=st.attach_ms, detach_ms=st.detach_ms,
+        tier_equal_to_flat_gate=True, outputs=len(outs),
+        runtime=dict(ticks=rep.ticks, tuples_per_s=rep.throughput_tps,
+                     p50_ms=rep.p50_ms, p99_ms=rep.p99_ms,
+                     wall_s=rep.wall_s, queue_high_water=rep.queue_high_water,
+                     reconfigs=[(tk, int(rc.n_active))
+                                for tk, rc in rep.reconfig_trace],
+                     switches=rep.switches,
+                     detect_to_switch_ticks=rep.detect_to_switch_ticks),
+        equal_to_cpu=True, cpu_run_seconds=cpu_seconds,
+        vsn_sigma_bytes_moved=pipe.bytes_transferred, profile=profile,
+        launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -514,17 +752,16 @@ def main() -> int:
                      if "Used" in ln or "spill" in ln]))
     print(card_line(), flush=True)
 
-    rows = [check_scalegate_merge(dev), check_segment_aggregate(dev),
-            check_window_join(dev)]
+    rows = [check_scalegate_merge(dev), check_scalegate_merge_stacked(dev),
+            check_segment_aggregate(dev), check_window_join(dev)]
     emit(dict(phase="kernels", kernels=rows))
 
     # The main path: each pipeline phase zeroes the counts right before its
     # card run and reads them right after it.
-    q1 = q1_wordcount(dev)
-    emit(q1)
-    q3 = q3_scalejoin(dev)
-    emit(q3)
-    launches = {name: q1["launches"][name] + q3["launches"][name]
+    phases = [q1_wordcount(dev), q3_scalejoin(dev), q1_ingest_tier(dev)]
+    for ph in phases:
+        emit(ph)
+    launches = {name: sum(ph["launches"][name] for ph in phases)
                 for name in dispatch.registered()}
     if not all(launches.values()):
         raise AssertionError(f"a kernel never launched on the main path: "

@@ -127,6 +127,9 @@ class VSNPipeline:
     merge_fn: Callable = None       # (stacked state, fmu) -> state
     init_sigma: Callable = None     # device -> state
     device: Any = None
+    # step_staged returns a device-computed per-instance load vector (the
+    # async runtime then skips its host-side key-histogram fallback)
+    device_inst_load = True
 
     def __post_init__(self):
         self.device = _device.resolve(self.device)

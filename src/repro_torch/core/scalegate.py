@@ -14,7 +14,9 @@ orders by ``(tau, arrival)``.  On CPU tensors it runs ``_stable_order``,
 port equals the reference bit for bit.  This is a deliberate departure
 from the reference's ``merge_order``, which sends a buffer to the kernel
 only when its length is a power of two: the port's main path never goes
-around the kernel (the q1 buffer is 4097 lanes).
+around the kernel (the q1 buffer is 4097 lanes).  ``push_stacked``, the
+ingest tier's fused root merge, launches ``scalegate_merge_stacked`` every
+round on the card.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch.core import tuples as T
 from repro_torch.core import watermark as wm
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +104,25 @@ def stable_partition(keep: torch.Tensor) -> torch.Tensor:
     return order
 
 
+def _release(state: ScaleGateState, merged: T.TupleBatch, w,
+             wstate: wm.WatermarkState
+             ) -> Tuple[ScaleGateState, T.TupleBatch]:
+    """Emit the merged buffer's lanes with ``tau <= w`` and keep the rest,
+    compacted to the front, as the new stash (overflow counted)."""
+    cap = state.capacity
+    ready = merged.valid & (merged.tau <= w)
+    out = dataclasses.replace(merged, valid=ready)
+    keep = merged.valid & ~ready
+    keep_order = stable_partition(keep)
+    n_keep = keep.sum(dtype=torch.int32)
+    lanes = torch.arange(cap, device=keep.device)
+    stash = T.take(merged, keep_order[:cap], fill_invalid=lanes >= n_keep)
+    dropped = (n_keep - cap).clamp(min=0)
+    new_state = ScaleGateState(stash=stash, wmark=wstate,
+                               overflow=state.overflow + dropped)
+    return new_state, out
+
+
 def push(state: ScaleGateState, incoming: T.TupleBatch, *,
          wstate: wm.WatermarkState = None
          ) -> Tuple[ScaleGateState, T.TupleBatch]:
@@ -111,7 +133,6 @@ def push(state: ScaleGateState, incoming: T.TupleBatch, *,
     ``wstate`` overrides the implicit per-tuple frontier fold with an
     externally computed ``WatermarkState``.
     """
-    cap = state.capacity
     combined = T.concat(state.stash, incoming)
 
     if wstate is None:
@@ -121,22 +142,44 @@ def push(state: ScaleGateState, incoming: T.TupleBatch, *,
 
     order = merge_order(combined.tau, combined.source, combined.valid,
                         state.wmark.n_sources)
-    merged = T.take(combined, order)
+    return _release(state, T.take(combined, order), w, wstate)
 
-    ready = merged.valid & (merged.tau <= w)
-    out = dataclasses.replace(merged, valid=ready)
 
-    # Stash = the non-ready survivors, compacted to the front of the buffer.
-    keep = merged.valid & ~ready
-    keep_order = stable_partition(keep)
-    n_keep = keep.sum(dtype=torch.int32)
-    lanes = torch.arange(cap, device=keep.device)
-    stash = T.take(merged, keep_order[:cap], fill_invalid=lanes >= n_keep)
-    dropped = (n_keep - cap).clamp(min=0)
+def push_stacked(state: ScaleGateState, stacked: T.TupleBatch, reports,
+                 rmask) -> Tuple[ScaleGateState, T.TupleBatch]:
+    """Fused root merge: one kernel call over stacked per-leaf chunk rows.
 
-    new_state = ScaleGateState(stash=stash, wmark=wstate,
-                               overflow=state.overflow + dropped)
-    return new_state, out
+    ``stacked`` is a TupleBatch whose fields carry a leading ``[rows, C]``
+    layout (each row one padded ready chunk from a leaf, rows in leaf
+    order); ``reports``/``rmask`` are the per-leaf reported watermarks and
+    report mask of this round.  The frontier fold, the Definition-3
+    reduction and the merge stay on the device (``wm.fold_reports`` +
+    ``scalegate_merge_stacked``): the round reads nothing back.  Requires
+    ``capacity % C == 0`` so the stash prepends as whole rows.
+
+    Emission order is ``(tau, arrival)`` on every device, with arrival =
+    stash lanes first, then leaf rows in order: the ready set and tau
+    grouping equal ``push``'s; only the order among equal taus may differ
+    from the CPU's flat ``(tau, source, arrival)``.
+    """
+    from repro_torch.kernels.scalegate_merge.ops import \
+        scalegate_merge_stacked_op
+
+    rows, c = stacked.tau.shape
+    if state.capacity % c:
+        raise ValueError(f"stash capacity {state.capacity} is not a "
+                         f"multiple of the chunk width {c}")
+
+    wstate, eff, w = wm.fold_reports(state.wmark, reports, rmask)
+
+    incoming = tree_map(lambda a: a.reshape((rows * c,) + a.shape[2:]),
+                        stacked)
+    combined = T.concat(state.stash, incoming)
+    n = combined.batch
+    order2, _, _ = scalegate_merge_stacked_op(
+        combined.tau.reshape(n // c, c), combined.source.reshape(n // c, c),
+        combined.valid.reshape(n // c, c), eff)
+    return _release(state, T.take(combined, order2.reshape(-1)), w, wstate)
 
 
 def add_sources(state: ScaleGateState, mask, gamma) -> ScaleGateState:

@@ -47,25 +47,41 @@ def observe(state: WatermarkState, source: torch.Tensor, tau: torch.Tensor,
             valid: torch.Tensor) -> WatermarkState:
     """Fold a batch of (source, tau) observations into the frontier.
 
-    Frontiers only move forward.  Out-of-range source ids are dropped, as
-    the reference's ``mode="drop"`` scatter drops them.
+    Frontiers only move forward.  Source ids index as the reference's
+    ``frontier.at[source].max(..., mode="drop")`` does: an id in
+    ``[-n, -1]`` wraps to ``n + id`` (JAX normalises negative indices
+    before the drop), and any other id outside ``[0, n)`` is dropped.
     """
     n = state.n_sources
-    ok = (source >= 0) & (source < n)
+    idx = torch.where(source < 0, source + n, source)
+    ok = (idx >= 0) & (idx < n)
     upd = torch.where(valid, tau, -1)
     upd = torch.where(ok, upd, torch.iinfo(torch.int32).min)
     frontier = state.frontier.scatter_reduce(
-        0, torch.where(ok, source, 0).long(), upd, reduce="amax")
+        0, torch.where(ok, idx, 0).long(), upd, reduce="amax")
     return dataclasses.replace(state, frontier=frontier)
 
 
 def observe_explicit(state: WatermarkState, values, mask) -> WatermarkState:
-    """Explicit-watermark mode: fold reported per-source watermark values."""
-    values = torch.as_tensor(values, dtype=torch.int32,
-                             device=state.frontier.device)
+    """Explicit-watermark mode: fold reported per-source watermark values
+    (the root merge's per-leaf reports; frontiers stay non-decreasing)."""
+    dev = state.frontier.device
+    values = torch.as_tensor(values, dtype=torch.int32, device=dev)
+    mask = torch.as_tensor(mask, dtype=torch.bool, device=dev)
     frontier = torch.where(mask, torch.maximum(state.frontier, values),
                            state.frontier)
     return dataclasses.replace(state, frontier=frontier)
+
+
+def fold_reports(state: WatermarkState, reports, mask):
+    """Device-side frontier reduction for the fused root merge: fold the
+    leaves' reported watermarks (``observe_explicit``) and reduce to the
+    gate value.  Returns ``(state', eff, W)``: ``eff`` is the per-leaf
+    effective frontier (INF on inactive leaves, the stacked kernel's
+    reports) and ``W = min(eff)``; nothing is read back to the host."""
+    st = observe_explicit(state, reports, mask)
+    eff = torch.where(st.active, st.frontier, INF_TIME)
+    return st, eff, eff.min()
 
 
 def clamp_frontier(state: WatermarkState, mask, gamma) -> WatermarkState:

@@ -1,1 +1,2 @@
-"""Sinks of the pipeline's outputs (port of ``src/repro/io``)."""
+"""Live-stream I/O (port of ``src/repro/io``): sources, bounded queues,
+sinks and the metrics bus."""

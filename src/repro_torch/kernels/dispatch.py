@@ -9,15 +9,19 @@ version; a CUDA launch that fails raises.
 
 Each entry counts its launches in a plain integer, ``Kernel.launches``,
 incremented once per kernel launch and nowhere else, so a run can show that
-its path went through the kernel.
+its path went through the kernel.  The ingest tier launches from several
+threads at once, so the increment holds a lock.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, Dict
 
 import torch
+
+_COUNT_LOCK = threading.Lock()
 
 
 @dataclasses.dataclass
@@ -36,7 +40,8 @@ class Kernel:
         if dev.type != "cuda":
             raise ValueError(f"{self.name}: unsupported device {dev}")
         out = self.cuda(*args, **kwargs)
-        self.launches += 1
+        with _COUNT_LOCK:
+            self.launches += 1
         return out
 
 

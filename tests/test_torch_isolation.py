@@ -52,14 +52,32 @@ def test_port_imports_with_jax_unavailable():
 
 
 def test_default_device_is_the_card():
+    """``VSNPipeline``, ``IngestTier``, ``RootMerge`` and the ingest-tier
+    launcher resolve ``device=None`` to CUDA: without a card they raise,
+    and they run on the CPU only when asked."""
     from repro_torch.core.aggregate import count_aggregate
     from repro_torch.core.runtime import VSNPipeline
     from repro_torch.core.windows import WindowSpec
+    from repro_torch.ingest import IngestTier, RootMerge
+    from repro_torch.launch import ingest_tier
     op = count_aggregate(WindowSpec(10, 20), 8)
+    entries = {
+        "VSNPipeline": lambda **kw: VSNPipeline(op, n_max=2, n_active=1,
+                                                **kw).device,
+        "IngestTier": lambda **kw: IngestTier([], 2, 1, **kw).device,
+        "RootMerge": lambda device=None: RootMerge(
+            2, 32, 1, 1, [0], torch_device=device).dev,
+    }
+    argv = ["--ticks", "2", "--tick", "8", "--leaves", "1", "--sources",
+            "2", "--worker", "inline", "--fused-root"]
     if torch.cuda.is_available():
-        assert VSNPipeline(op, n_max=2, n_active=1).device.type == "cuda"
+        for make in entries.values():
+            assert make().type == "cuda"
         return
+    for name, make in entries.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+        assert make(device="cpu").type == "cpu", name
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        VSNPipeline(op, n_max=2, n_active=1)
-    assert VSNPipeline(op, n_max=2, n_active=1, device="cpu").device.type \
-        == "cpu"
+        ingest_tier.main(argv)
+    assert ingest_tier.main(argv + ["--device", "cpu"]) == 0
