@@ -106,16 +106,6 @@ class LeafOut:
         return int(self.ready["tau"].shape[0])
 
 
-@dataclasses.dataclass
-class LeafSnap:
-    """One leaf's answer to a snapshot round: its exported gate state
-    (picklable numpy only), captured after the leaf pushed round
-    ``round_id - 1`` and before it sees the next tick."""
-    leaf_id: int
-    round_id: int
-    state: Dict
-
-
 class LeafGate:
     """The leaf state machine; drivable inline, from a thread, or from a
     child process (see the worker loops below).  Its gate lives on
@@ -134,11 +124,6 @@ class LeafGate:
         self.state = scalegate.init_scalegate(
             n_sources, cap, kmax, payload_width,
             active=np.asarray(owned, bool), device=self.device)
-
-    def export_state(self) -> Dict:
-        """Picklable numpy snapshot of the gate (stash + frontier +
-        overflow), the leaf's answer to a snapshot round."""
-        return scalegate.export_np(self.state)
 
     # -- per-round work ------------------------------------------------------
     def push_round(self, round_id: int, slice_np: Optional[Dict] = None,
@@ -206,9 +191,8 @@ def run_gate_loop(gate: LeafGate, recv, send, ship_obs: bool = False) -> None:
     stop/flush; shared verbatim by thread and process workers.
 
     Messages: ``("tick", round, slice_np)`` | ``("cmd", round, ops)`` |
-    ``("snap", round)`` | ``("stop",)``.  Every tick/cmd/snap message
-    produces exactly one answer (``LeafOut`` / ``LeafSnap``) via ``send``:
-    the root's round barrier counts on it.
+    ``("stop",)``.  Every tick/cmd message produces exactly one
+    ``LeafOut`` via ``send``: the root's round barrier counts on it.
 
     ``ship_obs=True`` (process workers only) attaches the child's drained
     observability payload to each outgoing ``LeafOut``; thread workers
@@ -251,8 +235,6 @@ def run_gate_loop(gate: LeafGate, recv, send, ship_obs: bool = False) -> None:
             answer(out)
             if leaving:
                 break
-        elif kind == "snap":
-            send(LeafSnap(gate.leaf_id, msg[1], gate.export_state()))
         else:
             raise ValueError(f"unknown message {msg!r}")
 

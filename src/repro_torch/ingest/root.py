@@ -31,7 +31,7 @@ it alike; the root's ready *set* and tau grouping are the same either way
 from __future__ import annotations
 
 import warnings
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -63,13 +63,17 @@ class RootMerge:
     nothing back to the host.  The per-round invariant checks of the host
     path then run every ``check_every`` rounds (each check is a device
     sync); stats accrue lazily (``sync_stats``).  The root's state lives
-    on ``torch_device`` (default: the card)."""
+    on ``torch_device`` (default: the card).  ``device=None`` takes the
+    fused round on the card and the host path elsewhere, so no default
+    path on the card goes around the stacked kernel."""
 
     def __init__(self, max_leaves: int, cap: int, kmax: int,
                  payload_width: int, active_leaves: Sequence[int],
-                 out_pad: int = MIN_PAD, device: bool = False,
+                 out_pad: int = MIN_PAD, device: Optional[bool] = None,
                  check_every: int = 8, torch_device=None):
         self.dev = _device.resolve(torch_device)
+        if device is None:
+            device = self.dev.type == "cuda"
         self.max_leaves = max_leaves
         self.kmax = kmax
         self.payload_width = payload_width

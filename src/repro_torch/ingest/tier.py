@@ -2,9 +2,9 @@
 
 Held against ``src/repro/ingest/tier.py``.  Every gate of the tier (leaves
 and root) lives on ``device`` (default: the card); process workers
-resolve it themselves in their spawned child.  Snapshot rounds are ported;
-restoring a tier from one (the reference's ``restore=``) comes with the
-checkpoint slice.
+resolve it themselves in their spawned child.  The reference's snapshot
+rounds (``snapshot_every``) and ``restore=`` come with the checkpoint
+slice.
 
 Topology (paper §6's elastic/hierarchical TB)::
 
@@ -93,16 +93,10 @@ class _Command:
 @dataclasses.dataclass
 class _RoundRec:
     round_id: int
-    kind: str                 # "tick" | "reconfig" | "final" | "snap"
+    kind: str                 # "tick" | "reconfig" | "final"
     leaves: Tuple[int, ...]   # who must answer this round
     root_ops: Tuple = ()
     cmd: Optional[_Command] = None
-    # snap rounds only: the router-side cut captured at build time (the
-    # router runs ahead of the consumer, so consumer-side reads would race)
-    snap_tick: Optional[int] = None       # source ticks routed before cut
-    snap_frontier: Optional[np.ndarray] = None
-    snap_tuples_in: int = 0
-    snap_next_leaf_id: int = 0
 
 
 @dataclasses.dataclass
@@ -150,8 +144,10 @@ class IngestTier:
 
     ``stream`` yields source ticks (``TupleBatch``; per-source
     timestamp-sorted, source ids in ``[0, n_sources)``).  One-shot: iterate
-    it once.  ``root_device=True`` selects the fused root round
-    (``RootMerge(device=True)``); ``device`` is where every gate lives.
+    it once.  ``device`` is where every gate lives.  ``root_device``
+    selects the root round (``RootMerge(device=...)``): by default the
+    fused ``scalegate_merge_stacked`` round on the card and the host path
+    on the CPU, where the tests hold it against the reference.
     """
 
     def __init__(self, stream, n_sources: int, n_leaves: int, *,
@@ -159,8 +155,8 @@ class IngestTier:
                  root_cap: int = 256, chan_cap: int = 4,
                  max_leaves: Optional[int] = None, record: bool = False,
                  schedule=None, out_pad: int = MIN_PAD,
-                 root_device: bool = False, root_check_every: int = 8,
-                 snapshot_every: int = 0, device=None):
+                 root_device: Optional[bool] = None,
+                 root_check_every: int = 8, device=None):
         assert worker in ("thread", "process", "inline"), worker
         assert n_leaves >= 1
         self.device = _device.resolve(device)
@@ -176,20 +172,11 @@ class IngestTier:
         self.out_pad = out_pad
         self.root_device = root_device
         self.root_check_every = root_check_every
-        # snapshot_every=K inserts a barrier "snap" round after every K-th
-        # routed source tick: every leaf answers with its exported state at
-        # that exact boundary, so the assembled snapshot is consistent
-        # across the whole tier by construction (no leaf has seen tick K
-        # when it answers, every leaf has pushed tick K-1)
-        self.snapshot_every = snapshot_every
-        self._snapshots: Dict[int, Dict] = {}   # emitted_rounds -> payload
         self.part = SourcePartitioner(n_sources, range(n_leaves))
         self.frontier = np.zeros((n_sources,), np.int64)
         self._next_leaf_id = n_leaves
         self._tick_index = 0
-        self._rounds_emitted = 0
         self.tuples_in = 0
-        self._last_snap_tick = 0
         self.emitted: Optional[List[T.TupleBatch]] = [] if record else None
 
         self._handles: Dict[int, _Handle] = {}
@@ -371,23 +358,6 @@ class IngestTier:
     def _build_next(self):
         """Next (rec, msgs_by_leaf), or None when the stream is fully
         routed and flushed."""
-        if (self.snapshot_every and not self._flushed
-                and self._tick_index > self._last_snap_tick
-                and self._tick_index % self.snapshot_every == 0):
-            # barrier snapshot round at the K-tick boundary, built BEFORE
-            # any due membership command so the captured cut excludes it
-            # (commands are controller intents, not snapshotted state)
-            self._last_snap_tick = self._tick_index
-            with self._cmd_lock:
-                next_leaf_id = self._next_leaf_id
-            rec = _RoundRec(self._round, "snap", self.part.leaves,
-                            snap_tick=self._tick_index,
-                            snap_frontier=self.frontier.copy(),
-                            snap_tuples_in=self.tuples_in,
-                            snap_next_leaf_id=next_leaf_id)
-            msgs = {l: ("snap", self._round, None) for l in self.part.leaves}
-            self._round += 1
-            return rec, msgs
         cmd = self._pop_due_cmd()
         if cmd is not None:
             out = self._build_reconfig(cmd)
@@ -487,50 +457,12 @@ class IngestTier:
             kind, r, payload = msgs[l]
             if kind == "tick":
                 outs.append(h.gate.push_round(r, payload))
-            elif kind == "snap":
-                outs.append(L.LeafSnap(l, r, h.gate.export_state()))
             else:
                 leaving = h.gate.apply(payload)
                 outs.append(h.gate.push_round(r, None, final=leaving))
                 if leaving:
                     del self._handles[l]
         return outs
-
-    # -- snapshots ------------------------------------------------------------
-    def _store_snapshot(self, rec: _RoundRec, snaps: List) -> None:
-        """Assemble the tier-wide cut: every leaf's state at the barrier,
-        the root gate (consumer-thread-owned, so between-rounds is safe),
-        and the router-side routing state captured when the snap round was
-        built.  Keyed by ``emitted_rounds`` — the number of merged rounds
-        the consumer (pipeline) has seen before this cut — which is what
-        aligns it with the runtime's tick ids."""
-        self._snapshots[self._rounds_emitted] = {
-            "leaves": [int(l) for l in rec.leaves],
-            "assignment": self.part.assignment.tolist(),
-            "next_leaf_id": int(rec.snap_next_leaf_id),
-            "frontier": np.asarray(rec.snap_frontier, np.int64),
-            "source_ticks": int(rec.snap_tick),
-            "emitted_rounds": int(self._rounds_emitted),
-            "tuples_in": int(rec.snap_tuples_in),
-            "leaf_states": {int(s.leaf_id): s.state for s in snaps},
-            "root": self.root.export_state(),
-        }
-
-    def pop_snapshot(self, emitted_rounds: int) -> Optional[Dict]:
-        """The snapshot whose cut sits exactly before merged round
-        ``emitted_rounds`` (and drop any older ones); None if not taken.
-        The consumer thread stores, any thread may pop — guarded by the
-        GIL-atomic dict ops plus the runtime's happens-before (the tier
-        always collects the snap round before yielding the next tick)."""
-        snap = self._snapshots.pop(emitted_rounds, None)
-        for k in [k for k in self._snapshots if k < emitted_rounds]:
-            self._snapshots.pop(k, None)
-        return snap
-
-    def latest_snapshot(self) -> Optional[Dict]:
-        if not self._snapshots:
-            return None
-        return self._snapshots[max(self._snapshots)]
 
     def __iter__(self):
         self._start()
@@ -550,12 +482,6 @@ class IngestTier:
                             raise self._router_error
                         break
                     outs = self._collect(rec)
-                if rec.kind == "snap":
-                    self._store_snapshot(rec, outs)
-                    _obs.event("tier_snapshot", round_id=rec.round_id,
-                               source_ticks=rec.snap_tick,
-                               emitted_rounds=self._rounds_emitted)
-                    continue               # snapshots merge nothing
                 for lo in outs:            # cross-process obs piggybacks
                     if lo.obs is not None:
                         _obs.ingest_payload(lo.obs)
@@ -581,7 +507,6 @@ class IngestTier:
                                leaves=[int(l) for l in self.part.leaves])
                 if self.emitted is not None:
                     self.emitted.append(out)
-                self._rounds_emitted += 1
                 yield out
         finally:
             self._shutdown()

@@ -6,17 +6,24 @@ linked into one shared library under ``<repo>/build/repro_torch/<hash>/``.
 The hash covers the sources and the flags, so an edited source is rebuilt
 and an unchanged one is loaded as it is.  A build failure raises with the
 compiler's output.
+
+Kernels launch from several threads (leaf gates, the tier's router, the
+runtime's ingest thread) and from spawned leaf processes, so the first
+build is serialised twice: a thread lock within the process and an
+exclusive ``flock`` on ``<hash>/.lock`` across processes.  Whoever takes
+the lock second finds the finished library and only loads it.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
+import fcntl
 import hashlib
 import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -24,6 +31,8 @@ SOURCES = ("scalegate_merge.cu", "segment_aggregate.cu", "window_join.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_torch_kernels.so"
+_BUILD_LOCK = threading.RLock()      # build() runs inside library()'s hold
+_LIB = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -69,6 +78,14 @@ def build() -> pathlib.Path:
     if lib.exists():
         return lib
     out.mkdir(parents=True, exist_ok=True)
+    with _BUILD_LOCK, open(out / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)      # released when closed
+        if not lib.exists():
+            _compile(out, lib)
+    return lib
+
+
+def _compile(out: pathlib.Path, lib: pathlib.Path) -> None:
     nvcc = _nvcc()
     t0 = time.perf_counter()
     procs = [(src, subprocess.Popen(
@@ -98,18 +115,22 @@ def build() -> pathlib.Path:
     if link.returncode:
         raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
     os.replace(tmp, lib)
-    return lib
 
 
-@functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in PROTOTYPES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    return lib
+    """The loaded kernel library, built on first call (from any thread)."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    with _BUILD_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in PROTOTYPES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _LIB = lib
+    return _LIB
 
 
 def raise_on_error(name: str, rc: int) -> None:

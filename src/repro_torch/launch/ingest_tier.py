@@ -3,7 +3,7 @@
 Held against ``src/repro/launch/ingest_tier.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.ingest_tier --leaves 3 \\
-        --sources 6 --ticks 24 --join-at 6 --leave-at 14 --fused-root
+        --sources 6 --ticks 24 --join-at 6 --leave-at 14
 
 Streams a multi-source Q1-style workload through ``IngestTier`` (N leaf
 ScaleGates, each an ingest worker merging a disjoint source subset,
@@ -20,10 +20,15 @@ the plain PyTorch path) and verifies, live:
 * stash overflow at either level is surfaced, never silent.
 
 ``--worker`` selects the leaf execution vehicle (thread | process |
-inline); ``--fused-root`` merges each root round with one
-``scalegate_merge_stacked`` call; ``--pipeline`` also drives the merged
-stream through a ``VSNPipeline`` (the aggregate's fast path, as the Q1
-benchmark runs it) via ``AsyncStreamRuntime``.
+inline).  The root merges each round with one ``scalegate_merge_stacked``
+call on the card; on the CPU it takes the host path, the reference's
+default, against which the tests hold it (``--fused-root`` /
+``--no-fused-root`` choose either way).  ``--pipeline`` also drives the
+merged stream through a ``VSNPipeline`` via ``AsyncStreamRuntime``
+(``run_pipeline``), over a tier with the same root.  Its count aggregate
+runs the fast path (``agg.tick_fast``) where the reference runs the
+general O+ tick, which takes tens of seconds per tick on the CPU; the
+tests hold its outputs against the reference's general run.
 """
 
 import argparse
@@ -48,7 +53,7 @@ def make_stream(args, device):
         n_sources=args.sources, device=device))
 
 
-def main(argv=None):
+def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--leaves", type=int, default=3)
     ap.add_argument("--sources", type=int, default=6)
@@ -65,20 +70,55 @@ def main(argv=None):
     ap.add_argument("--pipeline", action="store_true",
                     help="also drive the merged stream through a "
                          "VSNPipeline via AsyncStreamRuntime")
-    ap.add_argument("--fused-root", action="store_true",
+    ap.add_argument("--fused-root", action=argparse.BooleanOptionalAction,
+                    default=None,
                     help="merge each root round with one "
-                         "scalegate_merge_stacked call")
+                         "scalegate_merge_stacked call (default: on the "
+                         "card only)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--seed", type=int, default=11)
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def run_pipeline(args, batches, device):
+    """The merged stream through a ``VSNPipeline`` via
+    ``AsyncStreamRuntime``; returns the ``RunReport`` and the sink."""
+    import functools
+
+    from repro_torch.core import aggregate as agg
+    from repro_torch.core.async_runtime import AsyncStreamRuntime
+    from repro_torch.core.runtime import VSNPipeline
+    from repro_torch.core.vsn import merge_fast_state
+    from repro_torch.core.windows import WindowSpec
+
+    op = agg.count_aggregate(WindowSpec(wa=500, ws=1000, wt="multi"),
+                             k_virt=K_VIRT, out_cap=1024, extra_slots=2,
+                             n_inputs=args.sources)
+    pipe = VSNPipeline(
+        op, n_max=8, n_active=4, stash_cap=args.root_cap + args.leaf_cap,
+        tick_fn=lambda o, s, r, m, explicit_w=None: agg.tick_fast(
+            o, "count", s, r, m, explicit_w=explicit_w),
+        merge_fn=merge_fast_state,
+        init_sigma=functools.partial(agg.fast_init, op), device=device)
+    tier = IngestTier(batches, args.sources, args.leaves,
+                      out_pad=2 * args.tick, **_tier_kw(args, device))
+    rt = AsyncStreamRuntime(pipe, tier, queue_cap=4)
+    return rt.run(), rt.sink
+
+
+def _tier_kw(args, device):
+    return dict(worker=args.worker, leaf_cap=args.leaf_cap,
+                root_cap=args.root_cap, root_device=args.fused_root,
+                device=device)
+
+
+def main(argv=None):
+    args = parse_args(argv)
     dev = _device.resolve(args.device)
     batches = make_stream(args, dev)
-    tier_kw = dict(worker=args.worker, leaf_cap=args.leaf_cap,
-                   root_cap=args.root_cap, root_device=args.fused_root,
-                   device=dev)
-    tier = IngestTier(batches, args.sources, args.leaves, **tier_kw)
+    tier = IngestTier(batches, args.sources, args.leaves,
+                      **_tier_kw(args, dev))
     if args.join_at is not None:
         new_leaf = tier.add_host(at_tick=args.join_at)
         print(f"# scheduled add_host -> leaf {new_leaf} at tick "
@@ -94,7 +134,8 @@ def main(argv=None):
     print(f"[ingest] {st.summary()}")
     print(f"[ingest] root-merge throughput "
           f"{st.tuples_out / max(dt, 1e-9):.0f} t/s over {dt:.2f}s "
-          f"({args.worker} workers, {dev})")
+          f"({args.worker} workers, {dev}, "
+          f"{'fused' if tier.root.device else 'host'} root)")
 
     taus = emitted_taus(outs)
     assert (np.diff(taus) >= 0).all(), "ready stream lost total order"
@@ -108,27 +149,7 @@ def main(argv=None):
     assert same, "hierarchical ingest diverged from the flat oracle"
 
     if args.pipeline:
-        import functools
-
-        from repro_torch.core import aggregate as agg
-        from repro_torch.core.async_runtime import AsyncStreamRuntime
-        from repro_torch.core.runtime import VSNPipeline
-        from repro_torch.core.vsn import merge_fast_state
-        from repro_torch.core.windows import WindowSpec
-
-        op = agg.count_aggregate(WindowSpec(wa=500, ws=1000, wt="multi"),
-                                 k_virt=K_VIRT, out_cap=1024, extra_slots=2,
-                                 n_inputs=args.sources)
-        pipe = VSNPipeline(
-            op, n_max=8, n_active=4, stash_cap=args.root_cap + args.leaf_cap,
-            tick_fn=lambda o, s, r, m, explicit_w=None: agg.tick_fast(
-                o, "count", s, r, m, explicit_w=explicit_w),
-            merge_fn=merge_fast_state,
-            init_sigma=functools.partial(agg.fast_init, op), device=dev)
-        tier2 = IngestTier(batches, args.sources, args.leaves,
-                           out_pad=2 * args.tick, **tier_kw)
-        rt = AsyncStreamRuntime(pipe, tier2, queue_cap=4)
-        rep = rt.run()
+        rep, _ = run_pipeline(args, batches, dev)
         print(f"[ingest->pipeline] {rep.summary()}")
     print("ingest tier OK")
     return 0

@@ -248,22 +248,6 @@ def test_tier_matches_reference_per_round(worker, fused):
     assert (np.diff(emitted_taus(pouts)) >= 0).all()
 
 
-def test_tier_snapshot_round_matches_reference():
-    batches = _stream(6, 4, seed=4)
-    jt, pt = _tiers("inline", True, batches, snapshot_every=3)
-    list(jt), list(pt)
-    jsnap, psnap = jt.latest_snapshot(), pt.latest_snapshot()
-    assert psnap is not None and psnap["source_ticks"] == 6
-    for k in ("leaves", "assignment", "next_leaf_id", "source_ticks",
-              "emitted_rounds", "tuples_in"):
-        assert jsnap[k] == psnap[k], k
-    np.testing.assert_array_equal(jsnap["frontier"], psnap["frontier"])
-    for l, st in jsnap["leaf_states"].items():
-        assert_tree_equal(np_tree(st), np_tree(psnap["leaf_states"][l]))
-    assert_tree_equal(np_tree(jsnap["root"]["sg"]), psnap["root"]["sg"])
-    assert jsnap["root"]["meta"] == psnap["root"]["meta"]
-
-
 def test_tier_process_workers():
     """Leaves in spawned child processes (each resolves its device
     itself): the same rounds as the inline tier."""

@@ -54,7 +54,8 @@ def test_port_imports_with_jax_unavailable():
 def test_default_device_is_the_card():
     """``VSNPipeline``, ``IngestTier``, ``RootMerge`` and the ingest-tier
     launcher resolve ``device=None`` to CUDA: without a card they raise,
-    and they run on the CPU only when asked."""
+    and they run on the CPU only when asked.  The root's default round is
+    the fused one on the card and the host path on the CPU."""
     from repro_torch.core.aggregate import count_aggregate
     from repro_torch.core.runtime import VSNPipeline
     from repro_torch.core.windows import WindowSpec
@@ -70,10 +71,19 @@ def test_default_device_is_the_card():
     }
     argv = ["--ticks", "2", "--tick", "8", "--leaves", "1", "--sources",
             "2", "--worker", "inline", "--fused-root"]
+    def root_is_fused(device=None):
+        tier = IngestTier([], 2, 1, worker="inline", device=device)
+        assert len(list(tier)) == 1              # the final flush round
+        assert tier.root.device == RootMerge(2, 32, 1, 1, [0],
+                                             torch_device=device).device
+        return tier.root.device
+
     if torch.cuda.is_available():
         for make in entries.values():
             assert make().type == "cuda"
+        assert root_is_fused() is True
         return
+    assert root_is_fused("cpu") is False
     for name, make in entries.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

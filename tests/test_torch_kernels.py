@@ -4,7 +4,11 @@ same numpy inputs.  The CUDA kernels themselves run only on the card
 (``chip_smoke.py``); here the registry must send CPU tensors to the plain
 version and count no launch."""
 
+import os
 import pathlib
+import subprocess
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -129,3 +133,78 @@ def test_registry_refuses_other_devices():
     t = torch.zeros(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         scalegate_merge_op(t, t, t.bool(), n_sources=1)
+
+
+# ------------------------------------------------------- the first build --
+
+STUB_NVCC = """#!{python}
+import pathlib, sys, time
+args = sys.argv[1:]
+with open({calls!r}, "a") as f:
+    f.write(" ".join(args) + "\\n")
+time.sleep(0.3)                       # widen the window for a racing build
+pathlib.Path(args[args.index("-o") + 1]).write_bytes(b"stub")
+"""
+
+
+@pytest.fixture
+def stub_nvcc(tmp_path, monkeypatch):
+    """``build`` with ``nvcc`` replaced by a script that logs each call and
+    writes its ``-o`` file, building into ``tmp_path``."""
+    from repro_torch.kernels import build
+    calls = tmp_path / "calls.txt"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(STUB_NVCC.format(python=sys.executable, calls=str(calls)))
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(build, "build_root", lambda: tmp_path / "build")
+    return build, calls, nvcc
+
+
+def test_first_build_from_many_threads_runs_nvcc_once(stub_nvcc, monkeypatch):
+    """Leaf, router, ingest and main threads may all launch first: one of
+    them builds (one nvcc per source, one link), the rest load its
+    library."""
+    build, calls, _ = stub_nvcc
+
+    class FakeLib:
+        def __init__(self, path):
+            self.path = path
+
+        def __getattr__(self, name):
+            fn = type("Fn", (), {})()
+            object.__setattr__(self, name, fn)
+            return fn
+
+    monkeypatch.setattr(build.ctypes, "CDLL", FakeLib)
+    monkeypatch.setattr(build, "_LIB", None)
+    got = []
+    threads = [threading.Thread(target=lambda: got.append(build.library()))
+               for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert len(got) == 8 and all(lib is got[0] for lib in got)
+    assert len(calls.read_text().splitlines()) == len(build.SOURCES) + 1
+    assert pathlib.Path(got[0].path).read_bytes() == b"stub"
+
+
+def test_first_build_from_two_processes_runs_nvcc_once(stub_nvcc, tmp_path):
+    """Spawned leaf processes build too: the file lock lets one compile
+    and the other find its library."""
+    build, calls, nvcc = stub_nvcc
+    code = ("import pathlib, sys\n"
+            "from repro_torch.kernels import build\n"
+            f"build._nvcc = lambda: {str(nvcc)!r}\n"
+            f"build.build_root = lambda: pathlib.Path({str(tmp_path)!r}) "
+            "/ 'build'\n"
+            "print(build.build())\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = [subprocess.Popen([sys.executable, "-c", code], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(2)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], outs
+    assert outs[0][0] == outs[1][0]
+    assert len(calls.read_text().splitlines()) == len(build.SOURCES) + 1

@@ -155,6 +155,37 @@ def test_tick_meta_matches_reference():
         np.testing.assert_array_equal(a, c)
 
 
+def test_launcher_pipeline_matches_reference_general_run():
+    """``--pipeline`` runs the count aggregate's fast path over the tier;
+    the reference launcher's ``--pipeline`` runs the general O+ tick over
+    its own tier.  Both give the same outputs over the same ticks."""
+    import argparse
+
+    from repro.core.async_runtime import AsyncStreamRuntime as JAsync
+    from repro.launch import ingest_tier as jl
+    from repro_torch.launch import ingest_tier as pl
+    args = pl.parse_args(["--ticks", "12", "--tick", "32", "--leaves", "2",
+                          "--sources", "4", "--worker", "inline",
+                          "--device", "cpu"])
+    batches = jl.make_stream(argparse.Namespace(
+        seed=args.seed, ticks=args.ticks, tick=args.tick,
+        sources=args.sources))
+    prep, psink = pl.run_pipeline(args, [to_port(b) for b in batches], "cpu")
+
+    op = JA.count_aggregate(JWS(wa=500, ws=1000, wt="multi"),
+                            k_virt=jl.K_VIRT, out_cap=1024, extra_slots=2,
+                            n_inputs=args.sources)
+    pipe = JVSN(op, n_max=8, n_active=4,
+                stash_cap=args.root_cap + args.leaf_cap)
+    tier = JTier(batches, args.sources, args.leaves, worker=args.worker,
+                 leaf_cap=args.leaf_cap, root_cap=args.root_cap,
+                 out_pad=2 * args.tick, backend="xla")
+    jrt = JAsync(pipe, tier, queue_cap=4)
+    jrep = jrt.run()
+    assert prep.ticks == jrep.ticks == args.ticks + 1
+    assert psink.results() and psink.results() == jrt.sink.results()
+
+
 def test_super_batch_is_not_ported_yet():
     _, pp = _pipes()
     with pytest.raises(NotImplementedError, match="run_persistent"):
