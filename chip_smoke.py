@@ -8,12 +8,15 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
 1. ``build``   — compile the CUDA kernels from ``src/repro_torch/
                  kernels/csrc`` (one ``nvcc`` per source, in parallel) and
                  print the card's name and power limit.
-2. ``kernels`` — hold each of the four kernels against its plain PyTorch
-                 version on the card, exactly, at the main path's shapes and
-                 on edge cases, and time kernel, plain version, one library
+2. ``kernels`` — hold each of the six kernels against its plain PyTorch
+                 version on the card at the main path's shapes and on edge
+                 cases (the four stream kernels exactly; flash_attention
+                 within 2e-5 in float32 and 2e-2 in bfloat16, linear_scan
+                 within 1e-4), and time kernel, plain version, one library
                  call where one computes the same function, and the card's
                  bound; the two merge entries also at a multi-tile size of
-                 the ingest tier's rounds.
+                 the ingest tier's rounds, the two model kernels at both
+                 their decode and prefill shapes.
 3. ``q1_wordcount`` — the Q1 wordcount VSN pipeline with a mid-stream
                  reconfiguration (4 -> 16 instances), equal to the same run
                  on the CPU (outputs, switch flags, instance loads), with 0
@@ -34,14 +37,26 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
                  gate's, the outputs equal to a CPU ``run_sync`` replaying
                  the card run's reconfigurations, 0 sigma bytes moved, and
                  one stacked-merge launch per root round.
+6-7. ``serve_qwen3_14b``, ``serve_rwkv6_7b`` — each model at its published
+                 width and depth in bfloat16 (random parameters drawn on the
+                 card), one after the other, through ``build_runtime`` ->
+                 ``AsyncStreamRuntime`` -> ``ServingPipeline`` ->
+                 ``ServingEngine`` with the SLO controller: every request
+                 served, first tokens equal to ``reference_decode``, one
+                 kernel launch per layer per forward, a mid-decode VSN
+                 switch moving 0 bytes and an SN switch moving more, both
+                 token-invisible, and a float32 copy cut to 4 layers
+                 token-identical to ``reference_decode`` (see
+                 ``serve_full_width``).
 
-Phases 3, 4 and 5 are the main path: each zeroes the launch counts right
+Phases 3 to 7 are the main path: each zeroes the launch counts right
 before its card run and reads them right after, and the ``{"kernels":
 [...]}`` line reports their sum with phase 2's times.  The last line is
 ``{"ok": true, "device": {...}}``.  Times are medians of CUDA-event
 timings over 20 runs after warm-up.
 """
 
+import dataclasses
 import functools
 import json
 import math
@@ -62,6 +77,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# bfloat16 dense tensor-core peak, without sparsity (NVIDIA H100 SXM data
+# sheet): the bound for work whose inputs are bfloat16.
+BF16_OPS_PER_S = 989e12
 
 
 def emit(obj) -> None:
@@ -87,11 +105,33 @@ def median_ms(fn, setup=None, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def bound(n_bytes: float, int_ops: float = 0.0, fp_ops: float = 0.0):
+def device_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Mean device time of one ``fn()``'s launches of the CUDA kernel whose
+    name contains ``kernel`` (torch.profiler): the kernel alone, without
+    the host time of its Python wrapper, which the CUDA events of
+    ``median_ms`` around one launch also span."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and kernel in e.name]
+    if not us:
+        raise AssertionError(f"the profiler saw no {kernel} launch")
+    return sum(us) / reps / 1e3
+
+
+def bound(n_bytes: float, int_ops: float = 0.0, fp_ops: float = 0.0,
+          bf16_ops: float = 0.0):
     """Least time for the work on this card: the larger of bytes over the
     memory rate and operations over their peak rate.  -> (ms, bound_by)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = max(int_ops / INT32_OPS_PER_S, fp_ops / FP32_OPS_PER_S)
+    t_ops = max(int_ops / INT32_OPS_PER_S, fp_ops / FP32_OPS_PER_S,
+                bf16_ops / BF16_OPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -357,6 +397,187 @@ def check_window_join(dev):
                       f"stored={stored}, comps={int(comps)}",
                 ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
                 bound_ms=ms, bound_by=by)
+
+
+def check_flash_attention(dev):
+    """The kernel against its plain version: the qwen3-14b prefill and
+    decode shapes (40 query heads over 8 KV heads, D 128), gemma3's D 256
+    with a sliding window, n_rep 1/2/5, ragged Sq/Skv, rows that see no key,
+    and the TPU kernel's own signature (3-D, offset Skv - Sq).  Tolerance:
+    2e-5 in float32 (the reference's).  In bfloat16, elementwise
+    1e-5 + 2^-8 * attn(|v|) + |want| / 64, from where the two differ:
+    each rounds p to bfloat16, the kernel against the running max and
+    the plain version against the row max, so a weight may differ by 2^-8
+    of itself and the output by 2^-8 of sum_i p_i |v_i| / l, which is the
+    plain version run on |v|; and each rounds its output to bfloat16,
+    one ulp being at most |x| / 128 (the last term allows two)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rnd(*shape, dtype=f32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def ints(values):
+        return torch.as_tensor(np.asarray(values, np.int32), device=dev)
+
+    def cache(slots, seq, heads, d, dtype):
+        """A slot-pool cache [slots, seq, heads, d] seen as [slots, heads,
+        seq, d], as the model hands it over."""
+        return rnd(slots, seq, heads, d, dtype=dtype).transpose(1, 2)
+
+    errs, used = {}, {}
+
+    def compare(name, q, k, v, **kw):
+        got = flash_attention_op(q, k, v, **kw)
+        want = flash_attention_ref(q, k, v, **kw)
+        if got.shape != want.shape:
+            raise AssertionError(f"flash_attention {name}: shape "
+                                 f"{tuple(got.shape)} != {tuple(want.shape)}")
+        diff = (got.float() - want.float()).abs()
+        if q.dtype == bf16:
+            weighted = flash_attention_ref(q, k, v.abs(), **kw).float()
+            limit = 1e-5 + weighted / 256 + want.float().abs() / 64
+        else:
+            limit = torch.full_like(diff, 2e-5)
+        errs[name] = float(diff.max())
+        # the largest share of its limit any element used
+        used[name] = float((diff / limit).max())
+        if not used[name] <= 1.0:
+            raise AssertionError(f"flash_attention {name}: max error "
+                                 f"{errs[name]}, {used[name]:.3g} of the "
+                                 f"limit")
+
+    pos = [0, 1, 31, 32, 127, 128, 500, 1023]
+    for dt in (f32, bf16):
+        tag = "f32" if dt is f32 else "bf16"
+        compare(f"prefill_8x40_{tag}", rnd(320, 128, 128, dtype=dt),
+                rnd(64, 1024, 128, dtype=dt), rnd(64, 1024, 128, dtype=dt),
+                n_rep=5, q_offset=ints(np.zeros(320)))
+        q = rnd(8, 1, 40, 128, dtype=dt).transpose(1, 2)
+        compare(f"decode_mixed_{tag}", q, cache(16, 1024, 8, 128, dt),
+                cache(16, 1024, 8, 128, dt), n_rep=5,
+                q_offset=ints(np.repeat(pos, 40)),
+                kv_index=ints([3, 0, 15, 7, 8, 1, 12, 5]))
+        for window, off in ((1024, 1400), (5, 70)):
+            compare(f"window{window}_d256_{tag}", rnd(2, 8, 64, 256, dtype=dt),
+                    rnd(2, 4, 1500, 256, dtype=dt),
+                    rnd(2, 4, 1500, 256, dtype=dt), n_rep=2, window=window,
+                    q_offset=ints(np.full(16, off)))
+        compare(f"n_rep1_d64_{tag}", rnd(4, 77, 64, dtype=dt),
+                rnd(4, 1000, 64, dtype=dt), rnd(4, 1000, 64, dtype=dt))
+        compare(f"ragged_d16_{tag}", rnd(6, 5, 16, dtype=dt),
+                rnd(3, 37, 16, dtype=dt), rnd(3, 37, 16, dtype=dt), n_rep=2)
+        compare(f"noncausal_d32_{tag}", rnd(2, 33, 32, dtype=dt),
+                rnd(2, 45, 32, dtype=dt), rnd(2, 45, 32, dtype=dt),
+                causal=False, window=9)
+        compare(f"sees_no_key_{tag}", rnd(2, 40, 16, dtype=dt),
+                rnd(2, 24, 16, dtype=dt), rnd(2, 24, 16, dtype=dt))
+    compare("tpu_signature_f32", rnd(4, 128, 128), rnd(4, 128, 128),
+            rnd(4, 128, 128))
+
+    def timed(b, sq, at):
+        """bf16 kernel, plain version, SDPA and bound for ``b`` lanes of
+        ``sq`` queries of qwen3-14b (40 heads over 8, D 128) at depth ``at``
+        of a 1024-slot cache; SDPA gets the visible keys with the KV heads
+        repeated (outside the timing) and is_causal for the prefill."""
+        q = rnd(b, sq, 40, 128, dtype=bf16).transpose(1, 2)
+        kc, vc = (cache(b, 1024, 8, 128, bf16) for _ in range(2))
+        off = ints(np.full(b * 40, at))
+        run = lambda f: f(q, kc, vc, n_rep=5, q_offset=off)
+        n_vis = at + sq
+        ke, ve = (x[:, :, :n_vis].repeat_interleave(5, dim=1).contiguous()
+                  for x in (kc, vc))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        visible = b * 40 * (sq * at + sq * (sq + 1) // 2)  # (query, key)
+        ms, by = bound(2 * (2 * b * 40 * sq * 128)          # q in, out
+                       + 2 * (2 * b * 8 * n_vis * 128)      # visible K, V
+                       + 4 * b * 40, bf16_ops=4 * visible * 128)
+        return dict(
+            shape=f"q [{b}, 40, {sq}, 128] bf16 at depth {at} of a "
+                  f"[{b}, 1024, 8, 128] cache, n_rep 5",
+            ms=median_ms(lambda: run(flash_attention_op)),
+            device_ms=device_ms(lambda: run(flash_attention_op),
+                                "flash_attention_kernel"),
+            plain_ms=median_ms(lambda: run(flash_attention_ref)),
+            library_ms=median_ms(lambda: sdpa(q, ke, ve,
+                                              is_causal=at == 0)),
+            bound_ms=ms, bound_by=by)
+
+    # the serve phase's decode round (8 lanes at depth ~144) and its
+    # batch-1 prefill of a 128-token prompt
+    return dict(name="flash_attention", cases=len(errs),
+                max_abs_err=max(v for k, v in errs.items() if "f32" in k),
+                max_abs_err_bf16=max(v for k, v in errs.items()
+                                     if "bf16" in k),
+                errors=errs, limit_used=max(used.values()),
+                limit_used_by_case=used,
+                **timed(8, 1, 144), prefill=timed(1, 128, 0))
+
+
+def check_linear_scan(dev):
+    """The kernel against its plain version: the rwkv6-7b prefill (64 heads,
+    128 tokens, 64 x 64 state) with and without u, its T = 1 decode over 8
+    lanes from a nonzero carried state with u per head, and the reference
+    sweep's shapes.  Tolerance 1e-4, the reference's."""
+    from repro_torch.kernels.linear_scan.ops import linear_scan_op
+    from repro_torch.kernels.linear_scan.ref import linear_scan_ref
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def inputs(bh, t, dk, dv, u_rows=None, s0=False):
+        rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+        w = 0.5 + 0.49 * torch.rand((bh, t, dk), generator=gen, device=dev)
+        return dict(r=rnd(bh, t, dk), k=rnd(bh, t, dk), v=rnd(bh, t, dv),
+                    w=w, u=None if u_rows is None else rnd(u_rows, dk),
+                    s0=rnd(bh, dk, dv) if s0 else None)
+
+    cases = {"prefill_u": inputs(64, 128, 64, 64, u_rows=64),
+             "prefill_no_u": inputs(64, 128, 64, 64),
+             "decode_s0_u": inputs(512, 1, 64, 64, u_rows=64, s0=True),
+             "ref_2x64x8x8_u": inputs(2, 64, 8, 8, u_rows=2),
+             "ref_3x128x16x24_u": inputs(3, 128, 16, 24, u_rows=3),
+             "ref_2x64x8x8": inputs(2, 64, 8, 8),
+             "ref_1x256x32x32": inputs(1, 256, 32, 32),
+             "reduced_16_s0": inputs(8, 9, 16, 16, u_rows=4, s0=True)}
+    call = lambda f, a: f(a["r"], a["k"], a["v"], a["w"], a["u"], a["s0"])
+    errs = {}
+    for name, a in cases.items():
+        got = call(linear_scan_op, a)
+        want = call(linear_scan_ref, a)
+        errs[name] = max(float((g - w_).abs().max())
+                         for g, w_ in zip(got, want))
+        if not errs[name] <= 1e-4:
+            raise AssertionError(f"linear_scan {name}: max error "
+                                 f"{errs[name]}")
+
+    def timed(name):
+        a = cases[name]
+        bh, t, dk = a["r"].shape
+        dv = a["v"].shape[-1]
+        # r, k, w, v in; o out; S_T out (and s0 in when given); u in
+        n_bytes = 4 * (3 * bh * t * dk + 2 * bh * t * dv + bh * dk * dv
+                       + (bh * dk * dv if a["s0"] is not None else 0)
+                       + a["u"].numel())
+        # per step and (i, j): w s, k v, + (the update) and r s, + (the
+        # output); the bonus diag(u) k^T v has rank 1, so per step it is
+        # a = sum_i r_i u_i k_i (3 per i) and y_j += a v_j (2 per j)
+        fp_ops = 5 * bh * t * dk * dv
+        if a["u"] is not None:
+            fp_ops += bh * t * (3 * dk + 2 * dv)
+        ms, by = bound(n_bytes, fp_ops=fp_ops)
+        return dict(shape=f"BH {bh}, T {t}, Dk {dk}, Dv {dv}, u, "
+                          f"s0 {a['s0'] is not None}",
+                    ms=median_ms(lambda: call(linear_scan_op, a)),
+                    device_ms=device_ms(lambda: call(linear_scan_op, a),
+                                        "linear_scan_kernel"),
+                    plain_ms=median_ms(lambda: call(linear_scan_ref, a)),
+                    library_ms=None, bound_ms=ms, bound_by=by)
+
+    # the serve phase's decode tick (8 lanes x 64 heads) and its prefill
+    return dict(name="linear_scan", cases=len(cases),
+                max_abs_err=max(errs.values()), errors=errs,
+                **timed("decode_s0_u"), prefill=timed("prefill_u"))
 
 
 # ---------------------------------------------------------------------------
@@ -746,6 +967,211 @@ def q1_ingest_tier(dev, n_ticks=40, tick=2048, join_at=12, leave_at=24):
         launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# phases 6-7: the elastic serving tier at full width (qwen3-14b, rwkv6-7b)
+# ---------------------------------------------------------------------------
+
+SERVE_KERNEL = {"dense": "flash_attention", "rwkv": "linear_scan"}
+
+
+def _engine_tokens(eng, prompts, max_new, at=None, mode="vsn",
+                   arrive=None):
+    """Serve ``prompts`` on ``eng`` from an idle pool (every slot free);
+    request i takes ``max_new`` (or ``max_new[i]``) tokens and is
+    submitted before round ``arrive[i]`` (default all before the first);
+    with ``at``, switch 1 -> 4 replicas in ``mode`` after that many
+    rounds.  -> ({uid: tokens}, kv bytes moved)."""
+    from repro_torch.serving import Request
+    eng.pool.reconfigure_vsn(1)
+    n = len(prompts)
+    news = [max_new] * n if isinstance(max_new, int) else max_new
+    arrive = [0] * n if arrive is None else arrive
+    done, moved, start = [], 0, eng.steps
+    while len(done) < n:
+        for i, p in enumerate(prompts):
+            if arrive[i] == eng.steps - start:
+                eng.submit(Request(uid=i, prompt=p, max_new=news[i]))
+        done += eng.tick()
+        if at is not None and eng.steps - start == at:
+            moved, _ = eng.reconfigure(4, mode=mode)
+    return {r.uid: list(r.out) for r in done}, moved
+
+
+def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
+                     max_new=32, lanes=4, ticks=24, check_layers=4,
+                     reduced=False):
+    """``arch`` at its published width and depth in bfloat16, parameters
+    drawn on the card from seed 0, through the serving entry points
+    (``build_runtime`` over a ``RequestSource`` -> ``AsyncStreamRuntime``
+    -> ``ServingPipeline`` -> ``ServingEngine``, ``SloServingController``).
+    Traffic: 2 sources, ``lanes`` request lanes per 50 ms tick, ``ticks``
+    arrival ticks at 40 requests/s with 160 in the middle third, prompts
+    of ``prompt_len`` tokens, ``max_new`` tokens each, 8 slots of
+    ``max_seq`` over 4 instances with 1 active at start.  Checks: every
+    request served; first tokens equal the port's ``reference_decode``
+    (batch 1 on both sides), and the share of equal tokens over the
+    first ``n_slots`` requests' whole outputs; the model's
+    kernel launched once per layer per forward; a mid-decode VSN switch
+    moves 0 bytes and SN more, both token-invisible; and a float32 copy
+    cut to ``check_layers`` layers (full width), serving prompts of mixed
+    lengths and budgets that arrive over several rounds, is
+    token-identical to ``reference_decode``.  The defaults are the card's
+    run; ``reduced=True`` with smaller arguments rehearses the phase on
+    the CPU (``dev="cpu"``)."""
+    from repro_torch import obs as _obs
+    from repro_torch.api import RuntimeConfig, build_runtime
+    from repro_torch.configs import canon, get_config
+    from repro_torch.io.sources import RateSchedule
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import traffic
+    from repro_torch.models import transformer
+    from repro_torch.serving import (RequestSource, ServingConfig,
+                                     ServingEngine, reference_decode)
+
+    from repro_torch.configs import reduced as reduce_cfg
+    dev = torch.device(dev)
+    cuda = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
+    mcfg = get_config(canon(arch))
+    if reduced:
+        mcfg = reduce_cfg(mcfg)
+    kernel = SERVE_KERNEL[mcfg.kind]
+    prev_obs = _obs.get()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cfg = RuntimeConfig(
+        serving=ServingConfig(arch=arch, reduced=reduced, n_slots=n_slots,
+                              max_seq=max_seq, n_instances=4, seed=0),
+        n_sources=2, n_active=1, controller="slo", slo_target_p99_ms=50.0,
+        device=str(dev),
+        obs={"enabled": True, "trace": True,
+             "slo_rules": [{"name": "decode_p99",
+                            "metric": "span.serve.decode",
+                            "threshold": 0.05, "quantile": 0.99}]})
+    source = RequestSource(
+        schedule=RateSchedule(traffic(ticks, 40.0, 160.0)), ticks=ticks,
+        lanes=lanes, prompt_len=prompt_len, max_new=max_new,
+        vocab=mcfg.vocab, seed=1, n_inputs=2, k_virt=n_slots, tick_ms=50,
+        drain_ticks=ticks * lanes * max_new // n_slots + 16)
+    rt = build_runtime(cfg, source)
+    sync()
+    init_s = time.perf_counter() - t0
+    pipe, eng = rt.pipeline, rt.pipeline.engine
+
+    # the main path: the kernel counts cover exactly this run
+    dispatch.reset_launches()
+    try:
+        rep = rt.run()
+    finally:
+        _obs.set_current(prev_obs)
+    launches = {k: v.launches for k, v in dispatch.registered().items()}
+    prefills, rounds = eng.prefills, eng.decode_rounds
+    forwards = prefills + rounds
+    assert len(pipe.finished) == source.total_requests > 0, \
+        (len(pipe.finished), source.total_requests)
+    if cuda:
+        assert launches[kernel] == mcfg.n_layers * forwards > 0, \
+            (launches, mcfg.n_layers, forwards)
+    assert all(n == 0 for k, n in launches.items() if k != kernel), launches
+    tokens = sum(len(r.out) for r in pipe.finished)
+    assert tokens == source.total_requests * max_new
+    for ev in pipe.reconfig_events:
+        assert ev["kv_bytes_moved"] == 0, ev
+
+    # tokens against the straight-line batch-1 reference on the card: the
+    # first token of every request (a batch-1 prefill on both sides, so
+    # equal), and every token of the first n_slots requests (the engine's
+    # batched decode rounds differently from batch 1 in bfloat16: a share)
+    t1 = time.perf_counter()
+    first_same = sum(
+        reference_decode(mcfg, eng.params, r.prompt, 1, max_seq)[0]
+        == r.out[0] for r in pipe.finished)
+    assert first_same == len(pipe.finished), (first_same, len(pipe.finished))
+    same = 0
+    for r in pipe.finished[:n_slots]:
+        ref = reference_decode(mcfg, eng.params, r.prompt, max_new, max_seq)
+        assert ref[0] == r.out[0] and len(ref) == len(r.out) == max_new
+        same += sum(a == b for a, b in zip(ref, r.out))
+    ref_s = time.perf_counter() - t1
+
+    # a manual reconfiguration mid-decode: token-invisible, 0 bytes (VSN),
+    # more than 0 bytes (SN)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, mcfg.vocab, prompt_len) for _ in range(n_slots)]
+    base, _ = _engine_tokens(eng, prompts, 16)
+    vsn, vsn_moved = _engine_tokens(eng, prompts, 16, at=4, mode="vsn")
+    sn, sn_moved = _engine_tokens(eng, prompts, 16, at=4, mode="sn")
+    assert vsn == base and vsn_moved == 0, vsn_moved
+    assert sn == base and sn_moved > 0, sn_moved
+
+    # where a decode round's time goes: 8 lanes, 4 rounds under the profiler
+    from repro_torch.serving import Request
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=1000 + i, prompt=p, max_new=8))
+    eng.tick()                                     # admit all + one round
+    sync()
+    profile = device_profile(lambda i: eng.tick(), 4)
+    while eng.running:
+        eng.tick()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
+    lat = rep.stage_latency_ms
+    out = dict(
+        phase=f"serve_{canon(arch)}", arch=arch, layers=mcfg.n_layers,
+        d_model=mcfg.d_model, params_billion=mcfg.param_count() / 1e9,
+        dtype=mcfg.dtype, slots=n_slots, max_seq=max_seq,
+        prompt_len=prompt_len, max_new=max_new, init_s=init_s,
+        requests=len(pipe.finished), tokens=tokens,
+        prefills=prefills, decode_rounds=rounds,
+        kernel_calls=mcfg.n_layers * forwards,
+        first_tokens_equal_reference=first_same,
+        token_share_equal_reference=same / (n_slots * max_new),
+        reference_s=ref_s,
+        runtime=dict(ticks=rep.ticks, wall_s=rep.wall_s,
+                     tokens_per_s=tokens / rep.wall_s,
+                     p50_ms=rep.p50_ms, p99_ms=rep.p99_ms,
+                     queue_high_water=rep.queue_high_water,
+                     switches=rep.switches,
+                     reconfigs=[(ev["n_active"], ev["kv_bytes_moved"])
+                                for ev in pipe.reconfig_events],
+                     slo_breaches=len(rep.slo_breaches)),
+        decode_round_ms=lat.get("serve.decode"),
+        prefill_ms=lat.get("serve.prefill"),
+        manual_reconfig=dict(vsn_bytes=vsn_moved, sn_bytes=sn_moved,
+                             tokens_unchanged=True),
+        profile=profile, peak_gb=peak_gb, launches=launches)
+    del rt, pipe, eng
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # float32, full width, cut to check_layers layers: token identity with
+    # lanes at mixed depths: 12 prompts of 9 lengths and 4 budgets over
+    # the 8 slots, half arriving 3 rounds late, so decode rounds batch
+    # lanes at different positions and freed slots are reused mid-run
+    cfg32 = dataclasses.replace(mcfg, dtype="float32", n_layers=check_layers)
+    params = transformer.init_params(cfg32, seed=3, device=dev)
+    eng = ServingEngine(cfg32, params, n_slots=n_slots, max_seq=max_seq,
+                        n_instances=4, device=dev)
+    n32 = n_slots + n_slots // 2
+    lens = [max(prompt_len - 9 * (i % 9), 2) for i in range(n32)]
+    news = [max(max_new - 5 * (i % 4), 1) for i in range(n32)]
+    prompts32 = [rng.integers(1, mcfg.vocab, n) for n in lens]
+    got, _ = _engine_tokens(eng, prompts32, news,
+                            arrive=[3 * (i % 2) for i in range(n32)])
+    f32_same = sum(got[i] == reference_decode(cfg32, params, p, news[i],
+                                              max_seq)
+                   for i, p in enumerate(prompts32))
+    assert f32_same == n32, (f32_same, n32)
+    out["float32_copy"] = dict(layers=check_layers, requests=n32,
+                               prompt_lens=sorted(set(lens)),
+                               tokens_per_request=sorted(set(news)),
+                               requests_token_identical=f32_same)
+    del eng, params
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -755,6 +1181,8 @@ def main() -> int:
     import repro_torch.kernels.scalegate_merge.ops      # noqa: F401
     import repro_torch.kernels.segment_aggregate.ops    # noqa: F401
     import repro_torch.kernels.window_join.ops          # noqa: F401
+    import repro_torch.kernels.flash_attention.ops      # noqa: F401
+    import repro_torch.kernels.linear_scan.ops          # noqa: F401
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -771,14 +1199,18 @@ def main() -> int:
     print(card_line(), flush=True)
 
     rows = [check_scalegate_merge(dev), check_scalegate_merge_stacked(dev),
-            check_segment_aggregate(dev), check_window_join(dev)]
+            check_segment_aggregate(dev), check_window_join(dev),
+            check_flash_attention(dev), check_linear_scan(dev)]
     emit(dict(phase="kernels", kernels=rows))
 
     # The main path: each pipeline phase zeroes the counts right before its
     # card run and reads them right after it.
-    phases = [q1_wordcount(dev), q3_scalejoin(dev), q1_ingest_tier(dev)]
-    for ph in phases:
-        emit(ph)
+    phases = []
+    for run in (q1_wordcount, q3_scalejoin, q1_ingest_tier,
+                functools.partial(serve_full_width, arch="qwen3-14b"),
+                functools.partial(serve_full_width, arch="rwkv6-7b")):
+        phases.append(run(dev))
+        emit(phases[-1])
     launches = {name: sum(ph["launches"][name] for ph in phases)
                 for name in dispatch.registered()}
     if not all(launches.values()):
@@ -792,7 +1224,8 @@ def main() -> int:
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
         library_ms=r["library_ms"], shape=r["shape"],
-        **({"multi_tile": r["multi_tile"]} if "multi_tile" in r else {}))
+        **{k: r[k] for k in ("device_ms", "multi_tile", "prefill",
+                             "max_abs_err_bf16") if k in r})
         for r in rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

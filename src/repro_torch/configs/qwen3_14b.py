@@ -1,0 +1,9 @@
+"""qwen3-14b [dense]: 40L d_model=5120 40H (GQA kv=8, d_head=128)
+d_ff=17408 vocab=151936; qk_norm [hf:Qwen/Qwen3-14B]."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-14b", n_layers=40, d_model=5120, n_heads=40,
+    n_kv_heads=8, d_head=128, d_ff=17408, vocab=151936, qk_norm=True,
+    rope_theta=1e6, kind="dense", tie_embeddings=False, n_microbatches=8,
+)

@@ -101,7 +101,9 @@ class RunReport:
 
 
 def _np(t) -> np.ndarray:
-    return t.cpu().numpy()
+    """A host copy of a tensor; host arrays (the serving pool's ownership
+    tables, its per-instance load) pass through."""
+    return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
 def _initial_frontier(pipeline, n_inputs: int) -> np.ndarray:

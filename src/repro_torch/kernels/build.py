@@ -27,7 +27,8 @@ import threading
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("scalegate_merge.cu", "segment_aggregate.cu", "window_join.cu")
+SOURCES = ("scalegate_merge.cu", "segment_aggregate.cu", "window_join.cu",
+           "flash_attention.cu", "linear_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_torch_kernels.so"
@@ -48,6 +49,13 @@ PROTOTYPES = {
     # ws, band, n_attrs, counts, comps, stream
     "repro_window_join": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I,
                           ctypes.c_float, _I, _P, _P, _P),
+    # q, k, v, o, strides (12 x int64), q_offset, kv_index, batch, hq, hkv,
+    # len_q, len_kv, d, causal, window, scale, dtype, stream
+    "repro_flash_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _I, _I, ctypes.c_float, _I, _P),
+    # r, k, v, w, u, u_rows, s0, o, s_out, bh, t_len, dk, dv, stream
+    "repro_linear_scan": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
+                          _I, _P),
 }
 
 

@@ -52,8 +52,9 @@ def test_port_imports_with_jax_unavailable():
 
 
 def test_default_device_is_the_card():
-    """``VSNPipeline``, ``IngestTier``, ``RootMerge`` and the ingest-tier
-    launcher resolve ``device=None`` to CUDA: without a card they raise,
+    """``VSNPipeline``, ``IngestTier``, ``RootMerge``, the ingest-tier
+    launcher, the model initializer and the serving engine resolve
+    ``device=None`` to CUDA: without a card they raise,
     and they run on the CPU only when asked.  The root's default round is
     the fused one on the card and the host path on the CPU."""
     from repro_torch.core.aggregate import count_aggregate
@@ -61,8 +62,17 @@ def test_default_device_is_the_card():
     from repro_torch.core.windows import WindowSpec
     from repro_torch.ingest import IngestTier, RootMerge
     from repro_torch.launch import ingest_tier
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import transformer
+    from repro_torch.serving import ServingEngine
     op = count_aggregate(WindowSpec(10, 20), 8)
+    mcfg = reduced(get_config("qwen3-14b"))
+    params = transformer.init_params(mcfg, device="cpu")
     entries = {
+        "init_params": lambda **kw: transformer.init_params(
+            mcfg, **kw)["embedding"].device,
+        "ServingEngine": lambda **kw: ServingEngine(
+            mcfg, params, n_slots=1, max_seq=8, **kw).device,
         "VSNPipeline": lambda **kw: VSNPipeline(op, n_max=2, n_active=1,
                                                 **kw).device,
         "IngestTier": lambda **kw: IngestTier([], 2, 1, **kw).device,

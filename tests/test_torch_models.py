@@ -1,0 +1,245 @@
+"""The port's models against the reference on the CPU: reduced qwen3-14b
+(dense GQA, qk-norm), rwkv6-7b (the linear-scan recurrence) and gemma3-4b
+(sliding windows; 6 layers so that the 6th is global), with the
+reference's own parameters carried across by ``convert.from_reference``.
+
+``forward``, ``prefill_with_cache`` and several ``decode_step``s agree
+with the reference's logits within 1e-4 in float32, with equal greedy
+tokens.  At the configs' own bfloat16 both sides are fed the reference's
+tokens and agree within 4e-2 on logits of magnitude < 1: the reference
+rounds attention logits to bfloat16 (its einsums return bfloat16) where
+the kernel keeps them in float32, and XLA fuses elementwise chains in
+float32 where PyTorch rounds each operation, so the two differ by a few
+bfloat16 ulps (measured up to 1.3e-2)."""
+
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax
+import jax.numpy as jnp
+
+from repro.configs import canon, get_config, reduced
+from repro.models import model as RM, transformer as RT
+from repro_torch import configs as pconfigs
+from repro_torch.models import convert, model as PM, transformer as PT
+
+ARCHS = ["qwen3-14b", "rwkv6-7b", "gemma3-4b"]
+BF16_ATOL = 4e-2
+S, MAX_SEQ, N_DECODE = 12, 24, 4
+
+
+def _configs(arch, dtype=None):
+    cfg = reduced(get_config(canon(arch)))
+    pcfg = pconfigs.reduced(pconfigs.get_config(pconfigs.canon(arch)))
+    upd = {} if dtype is None else {"dtype": dtype}
+    if arch.startswith("gemma3"):
+        upd["n_layers"] = 6
+    return (dataclasses.replace(cfg, **upd),
+            dataclasses.replace(pcfg, **upd))
+
+
+@functools.lru_cache(maxsize=None)
+def _pair(arch, dtype):
+    """The reference's parameters and the port's copy of them."""
+    cfg, pcfg = _configs(arch, dtype)
+    params = RT.init_params(jax.random.PRNGKey(0), cfg)
+    pp = convert.from_reference(jax.tree.map(np.asarray, params), pcfg,
+                                "cpu")
+    return cfg, params, pcfg, pp
+
+
+@pytest.fixture(scope="module", params=[(a, d) for a in ARCHS
+                                        for d in ("float32", "bfloat16")],
+                ids=lambda p: f"{p[0]}-{p[1]}")
+def pair(request):
+    return _pair(*request.param)
+
+
+def _logits_close(want, got, dtype):
+    want = np.asarray(want, np.float32)
+    got = got.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=1e-4)
+        np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+    else:
+        np.testing.assert_allclose(got, want, atol=BF16_ATOL)
+
+
+def test_configs_are_the_references():
+    from repro.configs import ARCHS as REF_ARCHS
+    assert pconfigs.ARCHS == REF_ARCHS
+    for arch in REF_ARCHS:
+        a, b = get_config(arch), pconfigs.get_config(arch)
+        assert dataclasses.asdict(a) == dataclasses.asdict(b), arch
+        assert dataclasses.asdict(reduced(a)) == \
+            dataclasses.asdict(pconfigs.reduced(b)), arch
+        assert a.param_count() == b.param_count()
+
+
+def test_forward_matches_reference(pair):
+    cfg, params, pcfg, pp = pair
+    toks = np.random.default_rng(0).integers(1, cfg.vocab, (2, S))
+    want, _, _, _ = RT.forward(params, cfg, jnp.asarray(toks, jnp.int32),
+                               jnp.arange(S))
+    got, _, _ = PT.forward(pp, pcfg, torch.from_numpy(toks), torch.arange(S))
+    _logits_close(want, got, cfg.dtype)
+    last = PM.prefill_step(pp, torch.from_numpy(toks), cfg=pcfg)
+    _logits_close(RM.prefill_step(params, jnp.asarray(toks, jnp.int32),
+                                  cfg=cfg), last, cfg.dtype)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_from_the_references_slot_pool(arch):
+    """The reference fills a 3-slot pool (prefill into slots 0 and 2);
+    ``from_reference_caches`` hands that pool to the port, and one decode
+    step over lanes 2 and 0 from it gives the reference's logits
+    (float32)."""
+    cfg, params, pcfg, pp = _pair(arch, "float32")
+    toks = np.random.default_rng(2).integers(1, cfg.vocab, (2, S))
+    rc, rs = RT.init_caches(cfg, 3, MAX_SEQ)
+    for slot, row in ((0, 0), (2, 1)):
+        c1 = jax.tree.map(lambda a: a[:, slot:slot + 1], rc)
+        s1 = jax.tree.map(lambda a: a[:, slot:slot + 1], rs)
+        _, c1, s1 = RM.prefill_with_cache(
+            params, jnp.asarray(toks[row:row + 1], jnp.int32), c1, s1,
+            cfg=cfg)
+        rc = jax.tree.map(lambda a, b: a.at[:, slot:slot + 1].set(b), rc, c1)
+        rs = jax.tree.map(lambda a, b: a.at[:, slot:slot + 1].set(b), rs, s1)
+    pc, ps = convert.from_reference_caches(
+        jax.tree.map(np.asarray, rc), jax.tree.map(np.asarray, rs), "cpu")
+    tok = np.array([5, 7], np.int32)
+    lanes = np.array([2, 0])
+    want, _, _ = RM.decode_step(params,
+                                jax.tree.map(lambda a: a[:, lanes], rc),
+                                jax.tree.map(lambda a: a[:, lanes], rs),
+                                jnp.asarray(tok), jnp.int32(S), cfg=cfg)
+    got, _, _ = PM.decode_step(pp, pc, ps, torch.from_numpy(tok).long(),
+                               torch.tensor([S, S]), cfg=pcfg,
+                               lanes=torch.from_numpy(lanes))
+    _logits_close(want, got, "float32")
+
+
+def test_prefill_and_decode_match_reference(pair):
+    """Prefill into fresh caches, then ``N_DECODE`` single-token steps.  In
+    float32 each side feeds its own argmax, which must agree, and the
+    caches/states end equal within 1e-4; in bfloat16 both take the
+    reference's tokens and the logits are compared."""
+    cfg, params, pcfg, pp = pair
+    toks = np.random.default_rng(1).integers(1, cfg.vocab, (2, S))
+    rc, rs = RT.init_caches(cfg, 2, MAX_SEQ)
+    pc, ps = PT.init_caches(pcfg, 2, MAX_SEQ, "cpu")
+    want, rc, rs = RM.prefill_with_cache(params, jnp.asarray(toks, jnp.int32),
+                                         rc, rs, cfg=cfg)
+    got, pc, ps = PM.prefill_with_cache(pp, torch.from_numpy(toks), pc, ps,
+                                        cfg=pcfg)
+    for step in range(N_DECODE + 1):
+        _logits_close(want, got, cfg.dtype)
+        if step == N_DECODE:
+            break
+        tok = np.asarray(jnp.argmax(want, axis=-1))
+        want, rc, rs = RM.decode_step(params, rc, rs,
+                                      jnp.asarray(tok, jnp.int32),
+                                      jnp.int32(S + step), cfg=cfg)
+        got, pc, ps = PM.decode_step(pp, pc, ps, torch.tensor(tok),
+                                     S + step, cfg=pcfg)
+    if cfg.dtype != "float32":
+        return            # bfloat16 rounding differences accumulate in state
+    for ref_tree, port_tree in ((rc, pc), (rs, ps)):
+        assert (ref_tree is None) == (port_tree is None)
+        for name in (ref_tree or {}):
+            np.testing.assert_allclose(port_tree[name].numpy(),
+                                       np.asarray(ref_tree[name]),
+                                       atol=1e-4, err_msg=name)
+
+
+def test_per_lane_positions_and_lanes_equal_one_lane_at_a_time():
+    """A decode batch whose lanes sit at different depths of a slot pool
+    (``lanes``) gives each lane what a batch-1 decode at its own depth
+    gives (float32)."""
+    _, pcfg = _configs("qwen3-14b", "float32")
+    pp = PT.init_params(pcfg, seed=3, device="cpu")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, pcfg.vocab, n) for n in (3, 7, 5)]
+    pool_c, _ = PT.init_caches(pcfg, 5, MAX_SEQ, "cpu")
+    slots = [4, 0, 2]
+    singles, firsts = [], []
+    for p, slot in zip(prompts, slots):
+        c, _ = PT.init_caches(pcfg, 1, MAX_SEQ, "cpu")
+        lg, c, _ = PM.prefill_with_cache(pp, torch.from_numpy(p[None]), c,
+                                         None, cfg=pcfg)
+        PM.prefill_with_cache(pp, torch.from_numpy(p[None]), pool_c, None,
+                              cfg=pcfg, lanes=torch.tensor([slot]))
+        tok = lg.argmax(-1)
+        lg, c, _ = PM.decode_step(pp, c, None, tok, len(p), cfg=pcfg)
+        singles.append(lg[0])
+        firsts.append(int(tok))
+    lg, _, _ = PM.decode_step(pp, pool_c, None, torch.tensor(firsts),
+                              torch.tensor([len(p) for p in prompts]),
+                              cfg=pcfg, lanes=torch.tensor(slots))
+    torch.testing.assert_close(lg, torch.stack(singles), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_embedding_stub_frontend_matches_reference():
+    """``frontend="embedding_stub"`` (chameleon-34b: qk-norm, dense) takes
+    precomputed embeddings instead of tokens."""
+    cfg, pcfg = _configs("chameleon-34b", "float32")
+    params = RT.init_params(jax.random.PRNGKey(2), cfg)
+    pp = convert.from_reference(jax.tree.map(np.asarray, params), pcfg,
+                                "cpu")
+    x = np.random.default_rng(2).normal(0, 1, (2, S, cfg.d_model))
+    x = x.astype(np.float32)
+    want, _, _, _ = RT.forward(params, cfg, jnp.asarray(x), jnp.arange(S))
+    got, _, _ = PT.forward(pp, pcfg, torch.from_numpy(x), torch.arange(S))
+    _logits_close(want, got, "float32")
+
+
+def test_layer_windows_match_reference():
+    for arch in ("gemma3-4b", "gemma3-12b", "qwen3-14b"):
+        cfg = get_config(arch)
+        want = RT.layer_windows(cfg)
+        got = PT.layer_windows(pconfigs.get_config(arch))
+        if want is None:
+            assert got is None
+        else:
+            assert got == np.asarray(want).tolist()
+
+
+def test_init_params_on_the_device_has_the_references_shapes():
+    """The port's own initializer (a seeded ``torch.Generator``): the
+    reference's tree of shapes and dtypes, its scales, and the same draw
+    for the same seed (different bits from JAX's, by design)."""
+    for arch in ("qwen3-14b", "rwkv6-7b"):
+        cfg, pcfg = _configs(arch)
+        ref = jax.tree.map(np.asarray, RT.init_params(jax.random.PRNGKey(0),
+                                                      cfg))
+        ref = convert.from_reference(ref, pcfg, "cpu")
+        a = PT.init_params(pcfg, seed=7, device="cpu")
+        b = PT.init_params(pcfg, seed=7, device="cpu")
+        flat = lambda t: jax.tree_util.tree_flatten_with_path(
+            jax.tree.map(lambda x: (tuple(x.shape), x.dtype), t,
+                         is_leaf=lambda x: isinstance(x, torch.Tensor)),
+            is_leaf=lambda x: isinstance(x, tuple))[0]
+        assert flat(a) == flat(ref)
+        for x, y in zip(jax.tree.leaves(a), jax.tree.leaves(b)):
+            assert torch.equal(x, y)
+        wq = a["layers"][0].get("attn", a["layers"][0].get("tm"))
+        w = next(iter(v for k, v in wq.items() if k in ("wq", "w_r")))
+        assert abs(float(w.float().std()) * pcfg.d_model ** 0.5 - 1) < 0.1
+        assert abs(float(a["embedding"].float().std()) / 0.02 - 1) < 0.1
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "hymba-1.5b"])
+def test_moe_and_hybrid_are_not_ported_yet(arch):
+    _, pcfg = _configs(arch)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PT.init_params(pcfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PT.init_caches(pcfg, 1, 8, "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PT.forward({}, pcfg, torch.zeros(1, 2, dtype=torch.long),
+                   torch.arange(2))
