@@ -11,7 +11,8 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
 2. ``kernels`` — hold each of the six kernels against its plain PyTorch
                  version on the card at the main path's shapes and on edge
                  cases (the four stream kernels exactly; flash_attention
-                 within 2e-5 in float32 and 2e-2 in bfloat16, linear_scan
+                 within 2e-5 in float32 and an elementwise bfloat16 limit,
+                 both bfloat16 bodies at every dense head size; linear_scan
                  within 1e-4), and time kernel, plain version, one library
                  call where one computes the same function, and the card's
                  bound; the two merge entries also at a multi-tile size of
@@ -52,8 +53,11 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
 Phases 3 to 7 are the main path: each zeroes the launch counts right
 before its card run and reads them right after, and the ``{"kernels":
 [...]}`` line reports their sum with phase 2's times.  The last line is
-``{"ok": true, "device": {...}}``.  Times are medians of CUDA-event
-timings over 20 runs after warm-up.
+``{"ok": true, "device": {...}}``.  A kernel's ``ms`` is the median over
+20 CUDA-event pairs of the mean of 20 back-to-back launches after
+warm-up, ``single_ms`` the median of 20 single launches (which also spans
+a wrapper's host time), ``device_ms`` the profiler's device time of one
+call, and the same for the plain version and the library call.
 """
 
 import dataclasses
@@ -61,6 +65,7 @@ import functools
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -86,43 +91,72 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def median_ms(fn, setup=None, reps: int = 20, warmup: int = 3) -> float:
-    """Median CUDA-event time of ``fn(*setup())``; ``setup`` runs outside
-    the timed region (fresh in-place targets)."""
+def median_ms(fn, setup=None, reps: int = 20, warmup: int = 3,
+              inner: int = 20) -> float:
+    """Median over ``reps`` CUDA-event pairs of the mean time of ``inner``
+    back-to-back ``fn(*setup())`` calls (one pair around all of them);
+    ``setup`` runs before the timed region (fresh in-place targets).
+    With ``inner=1`` it is the single-launch time, which also spans the
+    host time of a Python wrapper."""
     for _ in range(warmup):
         fn(*(setup() if setup else ()))
     torch.cuda.synchronize()
     pairs = []
     for _ in range(reps):
-        args = setup() if setup else ()
+        args = [setup() if setup else () for _ in range(inner)]
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn(*args)
+        for a in args:
+            fn(*a)
         end.record()
         pairs.append((start, end))
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+    return statistics.median(s.elapsed_time(e) / inner for s, e in pairs)
 
 
-def device_ms(fn, kernel: str, reps: int = 20) -> float:
-    """Mean device time of one ``fn()``'s launches of the CUDA kernel whose
-    name contains ``kernel`` (torch.profiler): the kernel alone, without
-    the host time of its Python wrapper, which the CUDA events of
-    ``median_ms`` around one launch also span."""
+def single_ms(fn, setup=None) -> float:
+    """Median CUDA-event time of one launch alone (``median_ms`` with
+    ``inner=1``)."""
+    return median_ms(fn, setup, inner=1)
+
+
+def device_ms(fn, setup=None, kernel=None, reps: int = 20) -> float:
+    """Mean device time of one ``fn(*setup())`` (torch.profiler): the
+    CUDA kernels whose name contains ``kernel``, or with ``kernel=None``
+    every kernel, copy and fill the call starts (a library call's own
+    kernels), without the host time of a Python wrapper."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    fn(*(setup() if setup else ()))
+    # now and then a profiling session records no device activity at all;
+    # such a session is taken again, up to three times
+    for _ in range(3):
+        args = [setup() if setup else () for _ in range(reps)]
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and kernel in e.name]
-    if not us:
-        raise AssertionError(f"the profiler saw no {kernel} launch")
-    return sum(us) / reps / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for a in args:
+                fn(*a)
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and (kernel is None or kernel in e.name)]
+        if us:
+            return sum(us) / reps / 1e3
+    raise AssertionError(f"the profiler saw no {kernel or 'CUDA'} activity")
+
+
+def timings(kernel, plain, library=None, setup=None):
+    """The columns of a kernel's row: ``ms`` (back-to-back mean),
+    ``single_ms`` (one launch alone), ``device_ms`` (profiler), the plain
+    version's ``plain_ms``, and the library call's ``library_ms`` and
+    ``library_device_ms`` (None without one)."""
+    return dict(
+        ms=median_ms(kernel, setup), single_ms=single_ms(kernel, setup),
+        device_ms=device_ms(kernel, setup),
+        plain_ms=median_ms(plain, setup),
+        library_ms=None if library is None else median_ms(library, setup),
+        library_device_ms=(None if library is None
+                           else device_ms(library, setup)))
 
 
 def bound(n_bytes: float, int_ops: float = 0.0, fp_ops: float = 0.0,
@@ -134,6 +168,35 @@ def bound(n_bytes: float, int_ops: float = 0.0, fp_ops: float = 0.0,
                 bf16_ops / BF16_OPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def kernel_name(mangled: str) -> str:
+    """``<name>_kernel<args>`` from a mangled kernel symbol: the
+    identifier ending in ``_kernel`` whose length prefixes it, then its
+    integer template arguments."""
+    end = mangled.find("_kernel") + len("_kernel")
+    for n in range(len("_kernel"), end):
+        if mangled[:end - n].endswith(str(n)):
+            args = re.findall(r"L[ib](\d+)E", mangled[end:].split("EE")[0]
+                              + "E")
+            name = mangled[end - n:end]
+            return f"{name}<{', '.join(args)}>" if args else name
+    return mangled
+
+
+def ptxas_summary(log: str):
+    """[kernel, registers and shared memory, spills] for every kernel in
+    the build log (``-Xptxas -v``)."""
+    rows, name, spill = [], None, ""
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            name = kernel_name(ln.split("for", 1)[1].strip())
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and name:
+            rows.append([name, ln.split(":", 1)[1].strip(), spill])
+            name = None
+    return rows
 
 
 def card_line() -> str:
@@ -194,11 +257,11 @@ def check_scalegate_merge(dev):
                        int_ops=n * math.ceil(math.log2(n)))
         return dict(
             shape=f"N={n}, n_sources=1",
-            ms=median_ms(lambda: scalegate_merge_op(tau, src, valid,
-                                                    n_sources=1)),
-            plain_ms=median_ms(lambda: scalegate_merge_ref(tau, src, valid,
-                                                           n_sources=1)),
-            library_ms=median_ms(lambda: torch.argsort(key, stable=True)),
+            **timings(lambda: scalegate_merge_op(tau, src, valid,
+                                                 n_sources=1),
+                      lambda: scalegate_merge_ref(tau, src, valid,
+                                                  n_sources=1),
+                      lambda: torch.argsort(key, stable=True)),
             bound_ms=ms, bound_by=by)
 
     # the q1 main-path shape (stash 2048 + tick 2048 + 1 ctrl lane, one
@@ -271,12 +334,11 @@ def check_scalegate_merge_stacked(dev):
                        int_ops=n * math.ceil(math.log2(n)))
         return dict(
             shape=f"[{rows}, {C}] = {n} lanes, {n_rep} reports",
-            ms=median_ms(lambda: scalegate_merge_stacked_op(tau, src, valid,
-                                                            reports)),
-            plain_ms=median_ms(lambda: scalegate_merge_stacked_ref(
-                tau, src, valid, reports)),
-            library_ms=median_ms(lambda: torch.argsort(key.reshape(-1),
-                                                       stable=True)),
+            **timings(lambda: scalegate_merge_stacked_op(tau, src, valid,
+                                                         reports),
+                      lambda: scalegate_merge_stacked_ref(tau, src, valid,
+                                                          reports),
+                      lambda: torch.argsort(key.reshape(-1), stable=True)),
             bound_ms=ms, bound_by=by)
 
     # the root's steady round (4096 stash + 4 leaf rows of 2048, one tile)
@@ -322,19 +384,20 @@ def check_segment_aggregate(dev):
     n = 4097 * 6 * 2
     kk, ss, vv, acc = cases[f"count_n{n}"]
     clone = lambda: (acc.clone(),)
-    kernel_ms = median_ms(lambda a: segment_aggregate_op(kk, ss, vv, a), clone)
-    plain_ms = median_ms(lambda a: segment_aggregate_ref(kk, ss, vv, a), clone)
+    row = timings(lambda a: segment_aggregate_op(kk, ss, vv, a),
+                  lambda a: segment_aggregate_ref(kk, ss, vv, a),
+                  setup=clone)
     ok = (kk >= 0) & (kk < k)
     flat = torch.where(ok, kk.long() * s + ss.long(), k * s)
     flat_acc = lambda: (torch.zeros(k * s + 1, 1, device=dev),)
-    library_ms = median_ms(
-        lambda a: a.index_put_((flat,), vv, accumulate=True), flat_acc)
+    put = lambda a: a.index_put_((flat,), vv, accumulate=True)
+    row.update(library_ms=median_ms(put, flat_acc),
+               library_device_ms=device_ms(put, flat_acc))
     hits = int(ok.sum())
     ms, by = bound(n * (4 + 4 + 4) + 2 * k * s * 4, fp_ops=hits)
     return dict(name="segment_aggregate", cases=len(cases) + 1,
                 max_abs_err=max_err, shape=f"N={n} into acc[{k},{s},1]",
-                ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=ms, bound_by=by)
+                **row, bound_ms=ms, bound_by=by)
 
 
 def fill_join_state(k, ring, tick, n_ticks, dev):
@@ -382,8 +445,8 @@ def check_window_join(dev):
     for nb in (500, 37):                           # B not a multiple of 32
         compare(f"b{nb}", tuple(a[:nb] for a in args[:3]) + args[3:], ws.ws)
     compare("k1000", args[:3] + tuple(a[:1000] for a in args[3:]), ws.ws)
-    kernel_ms = median_ms(lambda: window_join_op(*args, ws=ws.ws, **kw))
-    plain_ms = median_ms(lambda: window_join_ref(*args, ws=ws.ws, **kw))
+    row = timings(lambda: window_join_op(*args, ws=ws.ws, **kw),
+                  lambda: window_join_ref(*args, ws=ws.ws, **kw))
     _, comps = window_join_op(*args, ws=ws.ws, **kw)
     bsz, (k, r) = b.tau.shape[0], st.tau.shape
     pairs = bsz * k * r
@@ -395,24 +458,30 @@ def check_window_join(dev):
     return dict(name="window_join", cases=5, max_abs_err=0.0,
                 shape=f"B={bsz}, K={k}, R={r}, P=4, n_attrs=2, "
                       f"stored={stored}, comps={int(comps)}",
-                ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=ms, bound_by=by)
+                **row, bound_ms=ms, bound_by=by)
 
 
 def check_flash_attention(dev):
-    """The kernel against its plain version: the qwen3-14b prefill and
-    decode shapes (40 query heads over 8 KV heads, D 128), gemma3's D 256
-    with a sliding window, n_rep 1/2/5, ragged Sq/Skv, rows that see no key,
-    and the TPU kernel's own signature (3-D, offset Skv - Sq).  Tolerance:
-    2e-5 in float32 (the reference's).  In bfloat16, elementwise
-    1e-5 + 2^-8 * attn(|v|) + |want| / 64, from where the two differ:
-    each rounds p to bfloat16, the kernel against the running max and
-    the plain version against the row max, so a weight may differ by 2^-8
-    of itself and the output by 2^-8 of sum_i p_i |v_i| / l, which is the
-    plain version run on |v|; and each rounds its output to bfloat16,
-    one ulp being at most |x| / 128 (the last term allows two)."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention_op
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    """The kernel against its plain version, both bfloat16 bodies and the
+    float32 one: the qwen3-14b prefill and decode shapes (40 query heads
+    over 8 KV heads, D 128), stablelm-12b's D 160 (n_rep 4), gemma3's
+    D 256 (n_rep 2) with its 1024 window at decode and prefill, decode
+    depths at the 32-key chunk edges (0, 31, 32, 33, 1023) over a
+    permuted slot pool, rows that see no key (a whole lane, one head of a
+    lane, the first queries of a prefill), a prefill into the pool with
+    q_offset, n_rep 1/2/5, ragged Sq/Skv, both q_offset forms ([B] and
+    [B * H_q]) and the TPU kernel's own signature (3-D, offset Skv - Sq).
+    Tolerance: 2e-5 in float32 (the reference's).  In bfloat16,
+    elementwise 1e-5 + 2^-8 * attn(|v|) + |want| / 64, from where the two
+    differ: each rounds p to bfloat16, the kernel against a chunk's or
+    the running max and the plain version against the row max, so a
+    weight may differ by 2^-8 of itself and the output by 2^-8 of sum_i
+    p_i |v_i| / l, which is the plain version run on |v|; and each rounds
+    its output to bfloat16, one ulp being at most |x| / 128 (the last
+    term allows two)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_op, flash_attention_plain)
     f32, bf16 = torch.float32, torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(5)
 
@@ -427,17 +496,20 @@ def check_flash_attention(dev):
         seq, d], as the model hands it over."""
         return rnd(slots, seq, heads, d, dtype=dtype).transpose(1, 2)
 
+    def decode_q(b, heads, d, dtype):
+        return rnd(b, 1, heads, d, dtype=dtype).transpose(1, 2)
+
     errs, used = {}, {}
 
     def compare(name, q, k, v, **kw):
         got = flash_attention_op(q, k, v, **kw)
-        want = flash_attention_ref(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, **kw)
         if got.shape != want.shape:
             raise AssertionError(f"flash_attention {name}: shape "
                                  f"{tuple(got.shape)} != {tuple(want.shape)}")
         diff = (got.float() - want.float()).abs()
         if q.dtype == bf16:
-            weighted = flash_attention_ref(q, k, v.abs(), **kw).float()
+            weighted = flash_attention_plain(q, k, v.abs(), **kw).float()
             limit = 1e-5 + weighted / 256 + want.float().abs() / 64
         else:
             limit = torch.full_like(diff, 2e-5)
@@ -455,10 +527,9 @@ def check_flash_attention(dev):
         compare(f"prefill_8x40_{tag}", rnd(320, 128, 128, dtype=dt),
                 rnd(64, 1024, 128, dtype=dt), rnd(64, 1024, 128, dtype=dt),
                 n_rep=5, q_offset=ints(np.zeros(320)))
-        q = rnd(8, 1, 40, 128, dtype=dt).transpose(1, 2)
-        compare(f"decode_mixed_{tag}", q, cache(16, 1024, 8, 128, dt),
-                cache(16, 1024, 8, 128, dt), n_rep=5,
-                q_offset=ints(np.repeat(pos, 40)),
+        compare(f"decode_mixed_{tag}", decode_q(8, 40, 128, dt),
+                cache(16, 1024, 8, 128, dt), cache(16, 1024, 8, 128, dt),
+                n_rep=5, q_offset=ints(np.repeat(pos, 40)),
                 kv_index=ints([3, 0, 15, 7, 8, 1, 12, 5]))
         for window, off in ((1024, 1400), (5, 70)):
             compare(f"window{window}_d256_{tag}", rnd(2, 8, 64, 256, dtype=dt),
@@ -474,17 +545,54 @@ def check_flash_attention(dev):
                 causal=False, window=9)
         compare(f"sees_no_key_{tag}", rnd(2, 40, 16, dtype=dt),
                 rnd(2, 24, 16, dtype=dt), rnd(2, 24, 16, dtype=dt))
+        # stablelm-12b: D 160, 32 heads over 8; decode over a pool, and a
+        # prefill of 128 queries
+        compare(f"decode_d160_{tag}", decode_q(4, 32, 160, dt),
+                cache(6, 1024, 8, 160, dt), cache(6, 1024, 8, 160, dt),
+                n_rep=4, q_offset=ints([0, 200, 31, 1023]),
+                kv_index=ints([5, 1, 0, 3]))
+        compare(f"prefill_d160_{tag}", rnd(1, 32, 128, 160, dtype=dt),
+                rnd(1, 8, 128, 160, dtype=dt), rnd(1, 8, 128, 160, dtype=dt),
+                n_rep=4)
     compare("tpu_signature_f32", rnd(4, 128, 128), rnd(4, 128, 128),
             rnd(4, 128, 128))
+    # bfloat16 only: the split-KV decode's chunk edges over a permuted pool
+    # (q_offset per lane, [B]), the same per (lane, head) ([B * H_q])
+    depths = [0, 31, 32, 33, 1023, 144, 64, 500]
+    pool = [cache(8, 1024, 8, 128, bf16) for _ in range(2)]
+    perm = ints([6, 2, 7, 0, 5, 3, 1, 4])
+    compare("decode_chunk_edges_bf16", decode_q(8, 40, 128, bf16), *pool,
+            n_rep=5, q_offset=ints(depths), kv_index=perm)
+    compare("decode_chunk_edges_per_head_bf16", decode_q(8, 40, 128, bf16),
+            *pool, n_rep=5, q_offset=ints(np.repeat(depths, 40)),
+            kv_index=perm)
+    # gemma3: D 256, 16 heads over 8, the 1024 window, depths past it
+    compare("decode_window1024_d256_bf16", decode_q(4, 16, 256, bf16),
+            cache(4, 2048, 8, 256, bf16), cache(4, 2048, 8, 256, bf16),
+            n_rep=2, window=1024, q_offset=ints([5, 1023, 1024, 2047]),
+            kv_index=ints([2, 3, 0, 1]))
+    # rows that see no key: a whole lane (its window lies past the cache:
+    # every chunk works and the merge takes the mean of v), and one head
+    # of a lane beside heads that see keys
+    off = np.repeat([144, 5000, 33, 0], 40)
+    off[2 * 40 + 7] = 5000
+    compare("decode_sees_no_key_bf16", decode_q(4, 40, 128, bf16),
+            cache(4, 1024, 8, 128, bf16), cache(4, 1024, 8, 128, bf16),
+            n_rep=5, window=16, q_offset=ints(off))
+    # a prefill of 128 queries into the pool at each lane's depth
+    compare("prefill_into_pool_bf16",
+            rnd(2, 128, 40, 128, dtype=bf16).transpose(1, 2), *pool,
+            n_rep=5, q_offset=ints([0, 300]), kv_index=ints([5, 2]))
 
     def timed(b, sq, at):
         """bf16 kernel, plain version, SDPA and bound for ``b`` lanes of
         ``sq`` queries of qwen3-14b (40 heads over 8, D 128) at depth ``at``
-        of a 1024-slot cache; SDPA gets the visible keys with the KV heads
-        repeated (outside the timing) and is_causal for the prefill."""
+        of a 1024-slot cache, q_offset per lane as the model passes it;
+        SDPA gets the visible keys with the KV heads repeated (outside the
+        timing) and is_causal for the prefill."""
         q = rnd(b, sq, 40, 128, dtype=bf16).transpose(1, 2)
         kc, vc = (cache(b, 1024, 8, 128, bf16) for _ in range(2))
-        off = ints(np.full(b * 40, at))
+        off = ints(np.full(b, at))
         run = lambda f: f(q, kc, vc, n_rep=5, q_offset=off)
         n_vis = at + sq
         ke, ve = (x[:, :, :n_vis].repeat_interleave(5, dim=1).contiguous()
@@ -493,27 +601,49 @@ def check_flash_attention(dev):
         visible = b * 40 * (sq * at + sq * (sq + 1) // 2)  # (query, key)
         ms, by = bound(2 * (2 * b * 40 * sq * 128)          # q in, out
                        + 2 * (2 * b * 8 * n_vis * 128)      # visible K, V
-                       + 4 * b * 40, bf16_ops=4 * visible * 128)
+                       + 4 * b, bf16_ops=4 * visible * 128)
         return dict(
             shape=f"q [{b}, 40, {sq}, 128] bf16 at depth {at} of a "
                   f"[{b}, 1024, 8, 128] cache, n_rep 5",
-            ms=median_ms(lambda: run(flash_attention_op)),
-            device_ms=device_ms(lambda: run(flash_attention_op),
-                                "flash_attention_kernel"),
-            plain_ms=median_ms(lambda: run(flash_attention_ref)),
-            library_ms=median_ms(lambda: sdpa(q, ke, ve,
-                                              is_causal=at == 0)),
+            **timings(lambda: run(flash_attention_op),
+                      lambda: run(flash_attention_plain),
+                      lambda: sdpa(q, ke, ve, is_causal=at == 0)),
             bound_ms=ms, bound_by=by)
+
+    def split_sweep():
+        """Decode device ms at the serve shape (8 lanes of qwen3-14b, 1024
+        pool) at depths 144 and 1000 for every cluster size n_split the
+        wrapper may pick (1 to 8), each held against the plain version."""
+        q = decode_q(8, 40, 128, bf16)
+        kc, vc = (cache(8, 1024, 8, 128, bf16) for _ in range(2))
+        saved = flash_ops.MAX_SPLIT, dict(flash_ops._SMS)
+        out = {}
+        try:
+            flash_ops._SMS[dev] = 1 << 30      # n_split = MAX_SPLIT
+            for at in (144, 1000):
+                off = ints(np.full(8, at))
+                for n in range(1, flash_ops.MAX_SPLIT + 1):
+                    flash_ops.MAX_SPLIT = n
+                    compare(f"decode_split{n}_depth{at}_bf16", q, kc, vc,
+                            n_rep=5, q_offset=off)
+                    out[f"depth{at}_split{n}"] = device_ms(
+                        lambda: flash_attention_op(q, kc, vc, n_rep=5,
+                                                   q_offset=off))
+        finally:
+            flash_ops.MAX_SPLIT, flash_ops._SMS = saved
+        return out
 
     # the serve phase's decode round (8 lanes at depth ~144) and its
     # batch-1 prefill of a 128-token prompt
+    sweep = split_sweep()
     return dict(name="flash_attention", cases=len(errs),
                 max_abs_err=max(v for k, v in errs.items() if "f32" in k),
                 max_abs_err_bf16=max(v for k, v in errs.items()
                                      if "bf16" in k),
                 errors=errs, limit_used=max(used.values()),
                 limit_used_by_case=used,
-                **timed(8, 1, 144), prefill=timed(1, 128, 0))
+                **timed(8, 1, 144), prefill=timed(1, 128, 0),
+                decode_split_ms=sweep)
 
 
 def check_linear_scan(dev):
@@ -568,11 +698,9 @@ def check_linear_scan(dev):
         ms, by = bound(n_bytes, fp_ops=fp_ops)
         return dict(shape=f"BH {bh}, T {t}, Dk {dk}, Dv {dv}, u, "
                           f"s0 {a['s0'] is not None}",
-                    ms=median_ms(lambda: call(linear_scan_op, a)),
-                    device_ms=device_ms(lambda: call(linear_scan_op, a),
-                                        "linear_scan_kernel"),
-                    plain_ms=median_ms(lambda: call(linear_scan_ref, a)),
-                    library_ms=None, bound_ms=ms, bound_by=by)
+                    **timings(lambda: call(linear_scan_op, a),
+                              lambda: call(linear_scan_ref, a)),
+                    bound_ms=ms, bound_by=by)
 
     # the serve phase's decode tick (8 lanes x 64 heads) and its prefill
     return dict(name="linear_scan", cases=len(cases),
@@ -695,12 +823,14 @@ def q1_wordcount(dev):
         cpu_run_seconds=cpu_seconds, profile=profile, launches=launches)
 
 
-def device_profile(step, n: int) -> dict:
+def device_profile(step, n: int, kernel=None) -> dict:
     """``step(i)`` for i < n under torch.profiler: host wall time per tick,
     the share of it the device spent in kernels and copies, device
     operations per tick, host synchronizations per tick and the host time
-    blocked in them, and the kernels that took the most device time.  Device numbers are None when the profiler
-    recorded no device activity."""
+    blocked in them, the kernels that took the most device time, and
+    with ``kernel`` the device time per tick of the kernels whose name
+    contains it.  Device numbers are None when the profiler recorded no
+    device activity."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -726,7 +856,9 @@ def device_profile(step, n: int) -> dict:
         host_syncs_per_tick=len(sync_ev) / n,
         host_sync_ms_per_tick=sum(e.time_range.elapsed_us()
                                   for e in sync_ev) / n / 1e3,
-        top_device_ms_per_tick=[(name[:60], us / n / 1e3) for name, us in top])
+        top_device_ms_per_tick=[(name[:60], us / n / 1e3) for name, us in top],
+        kernel_ms_per_tick=None if kernel is None else sum(
+            us for name, us in by_name.items() if kernel in name) / n / 1e3)
 
 
 # ---------------------------------------------------------------------------
@@ -972,6 +1104,8 @@ def q1_ingest_tier(dev, n_ticks=40, tick=2048, join_at=12, leave_at=24):
 # ---------------------------------------------------------------------------
 
 SERVE_KERNEL = {"dense": "flash_attention", "rwkv": "linear_scan"}
+# a substring of the CUDA kernels' symbols, for the profile
+SERVE_KERNEL_SYMBOL = {"dense": "flash_", "rwkv": "linear_scan_kernel"}
 
 
 def _engine_tokens(eng, prompts, max_new, at=None, mode="vsn",
@@ -1023,7 +1157,6 @@ def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
     from repro_torch.configs import canon, get_config
     from repro_torch.io.sources import RateSchedule
     from repro_torch.kernels import dispatch
-    from repro_torch.launch.serve import traffic
     from repro_torch.models import transformer
     from repro_torch.serving import (RequestSource, ServingConfig,
                                      ServingEngine, reference_decode)
@@ -1049,8 +1182,12 @@ def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
              "slo_rules": [{"name": "decode_p99",
                             "metric": "span.serve.decode",
                             "threshold": 0.05, "quantile": 0.99}]})
+    # the middle third spiked, as in this phase's earlier runs (the
+    # launcher's traffic, the reference's, spikes the first third)
+    third = ticks // 3
     source = RequestSource(
-        schedule=RateSchedule(traffic(ticks, 40.0, 160.0)), ticks=ticks,
+        schedule=RateSchedule(((third, 40.0), (third, 160.0),
+                               (ticks - 2 * third, 40.0))), ticks=ticks,
         lanes=lanes, prompt_len=prompt_len, max_new=max_new,
         vocab=mcfg.vocab, seed=1, n_inputs=2, k_virt=n_slots, tick_ms=50,
         drain_ticks=ticks * lanes * max_new // n_slots + 16)
@@ -1111,7 +1248,8 @@ def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
         eng.submit(Request(uid=1000 + i, prompt=p, max_new=8))
     eng.tick()                                     # admit all + one round
     sync()
-    profile = device_profile(lambda i: eng.tick(), 4)
+    profile = device_profile(lambda i: eng.tick(), 4,
+                             kernel=SERVE_KERNEL_SYMBOL[mcfg.kind])
     while eng.running:
         eng.tick()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
@@ -1194,8 +1332,7 @@ def main() -> int:
     log = (lib.parent / "build.log").read_text()
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               library=str(lib.relative_to(ROOT)),
-              ptxas=[ln.strip() for ln in log.splitlines()
-                     if "Used" in ln or "spill" in ln]))
+              ptxas=ptxas_summary(log)))
     print(card_line(), flush=True)
 
     rows = [check_scalegate_merge(dev), check_scalegate_merge_stacked(dev),
@@ -1224,7 +1361,8 @@ def main() -> int:
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
         library_ms=r["library_ms"], shape=r["shape"],
-        **{k: r[k] for k in ("device_ms", "multi_tile", "prefill",
+        **{k: r[k] for k in ("single_ms", "device_ms", "library_device_ms",
+                             "multi_tile", "prefill", "decode_split_ms",
                              "max_abs_err_bf16") if k in r})
         for r in rows]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LIB_NAME = "librepro_torch_kernels.so"
 _BUILD_LOCK = threading.RLock()      # build() runs inside library()'s hold
 _LIB = None
+_FUNCTIONS = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,10 +50,8 @@ PROTOTYPES = {
     # ws, band, n_attrs, counts, comps, stream
     "repro_window_join": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I,
                           ctypes.c_float, _I, _P, _P, _P),
-    # q, k, v, o, strides (12 x int64), q_offset, kv_index, batch, hq, hkv,
-    # len_q, len_kv, d, causal, window, scale, dtype, stream
-    "repro_flash_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _I, _I, _I, ctypes.c_float, _I, _P),
+    # one packed argument block (flash_attention/ops.py ARGS)
+    "repro_flash_attention": (ctypes.c_char_p,),
     # r, k, v, w, u, u_rows, s0, o, s_out, bh, t_len, dk, dv, stream
     "repro_linear_scan": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
                           _I, _P),
@@ -139,6 +138,15 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _LIB = lib
     return _LIB
+
+
+def function(name: str):
+    """The bound C function ``name`` (argument and return types set),
+    kept after the first lookup so a launch costs one dict lookup."""
+    fn = _FUNCTIONS.get(name)
+    if fn is None:
+        fn = _FUNCTIONS[name] = getattr(library(), name)
+    return fn
 
 
 def raise_on_error(name: str, rc: int) -> None:

@@ -27,15 +27,15 @@ from repro_torch.serving import RequestSource, ServingConfig
 
 
 def traffic(ticks: int, rate: float, spike: float):
-    """``RateSchedule`` phases, ``(n_ticks, requests/s)``: ``rate``
-    throughout, or with ``spike > 0`` the middle third at ``spike``.  (The
-    reference builds ``[(0, rate), (ticks // 3, spike), (2 * ticks // 3,
-    rate)]``, which reads the first entries as durations and so puts the
-    spike in the first third.)"""
+    """``RateSchedule`` phases, ``(n_ticks, requests/s)``, as the reference
+    launcher builds them: ``[(0, rate)]``, or with ``spike > 0`` ``[(0,
+    rate), (ticks // 3, spike), (2 * ticks // 3, rate)]``.  The entries
+    are durations, so the first is empty and the spike covers the first
+    third of the run (the reference's comment says the middle one); the
+    rate then holds to the end."""
     if spike <= 0:
-        return ((ticks, rate),)
-    third = ticks // 3
-    return ((third, rate), (third, spike), (ticks - 2 * third, rate))
+        return ((0, rate),)
+    return ((0, rate), (ticks // 3, spike), (2 * ticks // 3, rate))
 
 
 def main(argv=None):
@@ -49,11 +49,11 @@ def main(argv=None):
     ap.add_argument("--instances", type=int, default=4)
     ap.add_argument("--n-active", type=int, default=1)
     ap.add_argument("--mode", choices=("vsn", "sn"), default="vsn")
-    # traffic: piecewise-constant req/s with a diurnal spike in the middle
+    # traffic: piecewise-constant req/s with a spike (the reference's list)
     ap.add_argument("--rate", type=float, default=40.0,
                     help="baseline arrival rate, requests/s")
     ap.add_argument("--spike", type=float, default=0.0,
-                    help="mid-run spike rate (0 = flat traffic)")
+                    help="spike rate over the first third (0 = flat traffic)")
     ap.add_argument("--ticks", type=int, default=40)
     ap.add_argument("--tick-ms", type=int, default=50)
     ap.add_argument("--lanes", type=int, default=4)

@@ -13,7 +13,8 @@ is ``[S]`` or ``[B, S]``, row b's new K/V land at ``positions[b]``, and its
 queries attend with offset ``positions[b, 0]``.  ``lanes`` (``i64[B]``)
 names the cache row of each batch row, so a decode batch of running slots
 reads and writes the slot pool where it lies (the reference gathers the
-slots into a batch and scatters them back).
+slots into a batch and scatters them back).  ``cache_index`` turns
+positions and lanes into the index tensors once per forward.
 """
 
 from __future__ import annotations
@@ -41,11 +42,24 @@ def init_attn(gen, cfg: ModelConfig, dtype, device=None):
     return p
 
 
+def cache_index(positions, b: int, lanes=None):
+    """What every layer's cached attention reads, made once per forward:
+    (cache rows ``[B, 1]``, positions ``[B, S]`` of the new K/V,
+    ``q_offset`` ``i32[B]`` (row b's queries start at ``positions[b, 0]``),
+    ``kv_index`` ``i32[B]`` or None)."""
+    rows = (torch.arange(b, device=positions.device) if lanes is None
+            else lanes)
+    pos = positions if positions.dim() == 2 else positions.expand(b, -1)
+    return (rows[:, None], pos, pos[:, 0].to(torch.int32),
+            None if lanes is None else lanes.to(torch.int32))
+
+
 def attn_forward(p, x, positions, cfg: ModelConfig, *,
-                 window: Optional[int] = None, cache=None, lanes=None):
+                 window: Optional[int] = None, cache=None, index=None):
     """x: [B, S, D].  With ``cache``: write the S new positions into it and
     attend over its whole timeline (causal, so positions past each row's
-    own are masked and never read)."""
+    own are masked and never read); ``index`` is then ``cache_index``'s
+    result, made by the caller once for all layers."""
     b, s, _ = x.shape
     q = (x @ p["wq"]).view(b, s, cfg.n_heads, cfg.head_dim)
     k = (x @ p["wk"]).view(b, s, cfg.n_kv_heads, cfg.head_dim)
@@ -59,17 +73,13 @@ def attn_forward(p, x, positions, cfg: ModelConfig, *,
 
     if cache is not None:
         ck, cv = cache["k"], cache["v"]
-        rows = (torch.arange(b, device=x.device) if lanes is None
-                else lanes)
-        pos = positions if positions.dim() == 2 else positions.expand(b, s)
-        ck[rows[:, None], pos] = k.to(ck.dtype)
-        cv[rows[:, None], pos] = v.to(cv.dtype)
-        q_offset = pos[:, :1].expand(b, cfg.n_heads).reshape(-1)
+        rows, pos, q_offset, kv_index = index
+        ck[rows, pos] = k.to(ck.dtype)
+        cv[rows, pos] = v.to(cv.dtype)
         out = flash_attention_op(
             q.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2),
-            causal=True, window=window, n_rep=n_rep,
-            q_offset=q_offset.to(torch.int32).contiguous(),
-            kv_index=None if lanes is None else lanes.to(torch.int32))
+            causal=True, window=window, n_rep=n_rep, q_offset=q_offset,
+            kv_index=kv_index)
     else:
         out = flash_attention_op(q.transpose(1, 2), k.transpose(1, 2),
                                  v.transpose(1, 2), causal=True,

@@ -67,8 +67,9 @@ def init_layer(gen, cfg: ModelConfig, dtype, device=None):
 
 
 def block_forward(p, x, positions, cfg: ModelConfig, *, window=None,
-                  cache=None, state=None, lanes=None):
-    """One decoder block.  Returns (x, cache, new_state)."""
+                  cache=None, state=None, index=None):
+    """One decoder block.  Returns (x, cache, new_state).  ``index``: the
+    forward's ``attention.cache_index``, shared by its layers."""
     if cfg.kind == "rwkv":
         h, shift_tm, wkv = rwkv_mod.time_mix_forward(
             p["tm"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg,
@@ -83,7 +84,7 @@ def block_forward(p, x, positions, cfg: ModelConfig, *, window=None,
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     attn_out, cache = attention.attn_forward(
         p["attn"], h, positions, cfg, window=window, cache=cache,
-        lanes=lanes)
+        index=index)
     x = x + attn_out
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     x = x + swiglu(h, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"])
@@ -139,6 +140,8 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, caches=None,
     windows = layer_windows(cfg)
     if cfg.kind == "rwkv" and states is None:
         _, states = init_caches(cfg, x.shape[0], 0, x.device)
+    index = (attention.cache_index(positions, x.shape[0], lanes)
+             if caches is not None and cfg.kind == "dense" else None)
     for i, layer_p in enumerate(params["layers"]):
         cache = (None if caches is None
                  else {k: v[i] for k, v in caches.items()})
@@ -149,7 +152,7 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, caches=None,
         x, _, new_state = block_forward(
             layer_p, x, positions, cfg,
             window=None if windows is None else windows[i], cache=cache,
-            state=state, lanes=lanes)
+            state=state, index=index)
         if states is not None:
             for k, v in new_state.items():
                 if lanes is None:

@@ -16,11 +16,14 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels.flash_attention.ops import (attention_ref_op,
                                                flash_attention_op as j_flash)
+from repro.kernels.flash_attention.ref import attention_ref
 from repro.kernels.linear_scan.ops import (linear_scan_op as j_scan,
                                            linear_scan_ref_op)
+from repro_torch import configs as pconfigs
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.linear_scan import ops as scan_ops
 from repro_torch.kernels.linear_scan.ops import linear_scan_op
 
@@ -229,3 +232,130 @@ def test_linear_scan_wrapper_refuses_what_the_kernel_cannot_take(case):
         args["r"] = x.double()
     with pytest.raises((ValueError, TypeError)):
         scan_ops._cuda(**args)
+
+
+DENSE = [a for a, c in pconfigs.all_configs().items() if c.kind == "dense"]
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_flash_attention_wrapper_takes_every_dense_configs_heads(arch):
+    """Every dense config's head size, query/KV head pair and window pass
+    the CUDA wrapper's checks (run here on CPU tensors, before any
+    launch), in bfloat16 as served and in float32 as checked: decode
+    lanes over a slot pool and a prefill."""
+    cfg = pconfigs.get_config(arch)
+    d, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    window = None if cfg.window_pattern is None else cfg.window_pattern[0]
+    for dt in (torch.bfloat16, torch.float32):
+        pool = torch.zeros(3, 8, hkv, d, dtype=dt).transpose(1, 2)
+        dec = torch.zeros(2, 1, hq, d, dtype=dt).transpose(1, 2)
+        flash_ops.validate(dec, pool, pool, window=window, n_rep=hq // hkv,
+                           q_offset=torch.full((2 * hq,), 4,
+                                               dtype=torch.int32),
+                           kv_index=torch.tensor([2, 0], dtype=torch.int32))
+        pre = torch.zeros(1, hq, 8, d, dtype=dt)
+        kv = torch.zeros(1, hkv, 8, d, dtype=dt)
+        flash_ops.validate(pre, kv, kv, window=window, n_rep=hq // hkv)
+
+
+def _split_kv_model(q, k, v, pos, *, causal, window, chunk):
+    """The bfloat16 decode body's arithmetic, in float32 numpy: rows
+    ``q`` [R, D] at positions ``pos`` over keys ``k``/``v`` [S, D], cut
+    into chunks of ``chunk`` keys.  Only the chunks some row sees are
+    walked (all of them if some row sees no key); each gives a partial
+    (m, l, acc) with masked logits at -1e30, and the partials merge by
+    log-sum-exp: out = sum_c e^(m_c - m) acc_c / sum_c e^(m_c - m) l_c."""
+    r, d = q.shape
+    kp = np.arange(k.shape[0])
+    see = np.ones((r, k.shape[0]), bool)
+    if causal:
+        see &= pos[:, None] >= kp
+    if window is not None:
+        see &= pos[:, None] - kp < window
+    lo, hi = 0, k.shape[0] - 1
+    if see.any(1).all():
+        lo, hi = kp[see.any(0)].min(), kp[see.any(0)].max()
+    parts = []
+    for c0 in range(lo // chunk * chunk, hi + 1, chunk):
+        sl = slice(c0, c0 + chunk)
+        logit = np.where(see[:, sl], (q @ k[sl].T) * np.float32(d ** -0.5),
+                         np.float32(-1e30)).astype(np.float32)
+        m = logit.max(1)
+        p = np.exp(logit - m[:, None])
+        parts.append((m, p.sum(1), p @ v[sl]))
+    m = np.max([pm for pm, _, _ in parts], axis=0)
+    w = [np.exp(pm - m) for pm, _, _ in parts]
+    l = sum(wc * pl for wc, (_, pl, _) in zip(w, parts))
+    acc = sum(wc[:, None] * pa for wc, (_, _, pa) in zip(w, parts))
+    return acc / np.maximum(l, 1e-30)[:, None]
+
+
+@pytest.mark.parametrize("chunk", [5, 8, 32])
+@pytest.mark.parametrize("sq,window,causal", [
+    (1, None, True), (1, 6, True), (2, 9, True), (1, None, False)])
+def test_split_kv_decode_arithmetic(chunk, sq, window, causal):
+    """The split-KV decomposition of the decode body equals the plain
+    version and, row by row, the JAX reference (``attention_ref`` over the
+    keys up to the row's position) within 2e-5, for GQA rows at their own
+    depths (q_offset per row), chunk sizes that cut the 37 keys unevenly,
+    and rows that see no key (a whole lane past its window, and one head
+    of a lane), which get the mean of v."""
+    rng = np.random.default_rng(chunk * 10 + sq)
+    b, hkv, n_rep, d, skv = 3, 2, 3, 16, 37
+    hq = hkv * n_rep
+    q = rng.normal(0, 1, (b, hq, sq, d)).astype(np.float32)
+    k = rng.normal(0, 1, (b, hkv, skv, d)).astype(np.float32)
+    v = rng.normal(0, 1, (b, hkv, skv, d)).astype(np.float32)
+    off = np.repeat(np.array([0, 20, skv - sq]), hq)
+    off[2 * hq + 4] = 3
+    if window is not None:
+        off[hq:2 * hq] = skv + window + 5        # lane 1 sees no key
+        off[2 * hq + 1] = skv + window           # one head of lane 2
+    got = np.zeros_like(q)
+    for bi in range(b):
+        for g in range(hkv):
+            heads = range(g * n_rep, (g + 1) * n_rep)
+            rows = np.concatenate([q[bi, h] for h in heads])
+            pos = np.concatenate([off[bi * hq + h] + np.arange(sq)
+                                  for h in heads])
+            out = _split_kv_model(rows, k[bi, g], v[bi, g], pos,
+                                  causal=causal, window=window, chunk=chunk)
+            got[bi, g * n_rep:(g + 1) * n_rep] = out.reshape(n_rep, sq, d)
+    want = flash_attention_ref(T(q), T(k), T(v), causal=causal,
+                               window=window, n_rep=n_rep,
+                               q_offset=T(off.astype(np.int32)))
+    np.testing.assert_allclose(got, want.numpy(), atol=2e-5)
+    for bi in range(b):
+        for h in range(hq):
+            for i in range(sq):
+                pos = off[bi * hq + h] + i
+                kv = slice(0, pos + 1) if causal else slice(0, skv)
+                lo = 0 if window is None else max(0, pos - window + 1)
+                if not causal and window is not None:
+                    continue        # the reference places q at the end
+                if lo > min(pos, skv - 1):
+                    np.testing.assert_allclose(
+                        got[bi, h, i], v[bi, h // n_rep].mean(0), atol=2e-5)
+                    continue
+                ref = attention_ref(q[bi, h, i][None, None],
+                                    k[bi, h // n_rep][None, kv],
+                                    v[bi, h // n_rep][None, kv],
+                                    causal=causal, window=window)
+                np.testing.assert_allclose(got[bi, h, i],
+                                           np.asarray(ref)[0, 0], atol=2e-5)
+
+
+def test_q_offset_per_batch_row_equals_per_head_rows():
+    """``q_offset`` of ``i32[B]`` (one depth per lane, as the model passes
+    it) gives what the reference-shaped ``i32[B * H_q]`` gives; other
+    sizes are refused before a launch."""
+    q, k, v = (T(a) for a in _attn_inputs(1, 30, 4, 5))
+    q, k, v = (x.reshape(2, -1, *x.shape[1:]) for x in (q, k, v))
+    lanes = torch.tensor([7, 29], dtype=torch.int32)
+    a = flash_attention_op(q, k, v, n_rep=4, q_offset=lanes)
+    b = flash_attention_op(q, k, v, n_rep=4,
+                           q_offset=lanes.repeat_interleave(4))
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        flash_ops.validate(q, k, v, n_rep=4,
+                           q_offset=torch.zeros(3, dtype=torch.int32))

@@ -184,6 +184,54 @@ def test_per_lane_positions_and_lanes_equal_one_lane_at_a_time():
                                rtol=1e-5)
 
 
+def test_hoisted_cache_index_leaves_the_logits_unchanged(monkeypatch):
+    """``forward`` makes the cached attention's index tensors (cache rows,
+    positions, q_offset per lane, kv_index) once and hands them to every
+    layer.  One decode step over lanes 2 and 0 of the reference's slot
+    pool gives the reference's logits within 1e-4 (float32), and exactly
+    what it gives with q_offset per (lane, head) row, as each layer made
+    it before."""
+    from repro_torch.models import attention as PA
+    cfg, params, pcfg, pp = _pair("qwen3-14b", "float32")
+    toks = np.random.default_rng(5).integers(1, cfg.vocab, (2, S))
+    rc, rs = RT.init_caches(cfg, 3, MAX_SEQ)
+    for slot, row in ((0, 0), (2, 1)):
+        c1 = jax.tree.map(lambda a: a[:, slot:slot + 1], rc)
+        _, c1, _ = RM.prefill_with_cache(
+            params, jnp.asarray(toks[row:row + 1], jnp.int32), c1, None,
+            cfg=cfg)
+        rc = jax.tree.map(lambda a, b: a.at[:, slot:slot + 1].set(b), rc, c1)
+    tok = np.array([5, 7], np.int32)
+    lanes = np.array([2, 0])
+    want, _, _ = RM.decode_step(params,
+                                jax.tree.map(lambda a: a[:, lanes], rc),
+                                rs, jnp.asarray(tok), jnp.int32(S), cfg=cfg)
+
+    def step():
+        pc, ps = convert.from_reference_caches(
+            jax.tree.map(np.asarray, rc), None, "cpu")
+        got, _, _ = PM.decode_step(pp, pc, ps, torch.from_numpy(tok).long(),
+                                   torch.tensor([S, S]), cfg=pcfg,
+                                   lanes=torch.from_numpy(lanes))
+        return got
+
+    calls = []
+    made = PA.cache_index
+    monkeypatch.setattr(PA, "cache_index",
+                        lambda *a: calls.append(1) or made(*a))
+    hoisted = step()
+    assert len(calls) == 1
+    _logits_close(want, hoisted, "float32")
+    attn = PA.attn_forward
+
+    def per_head_rows(*a, index=None, **kw):
+        rows, pos, q_offset, kv_index = index
+        per_row = q_offset.repeat_interleave(pcfg.n_heads)
+        return attn(*a, index=(rows, pos, per_row, kv_index), **kw)
+    monkeypatch.setattr(PA, "attn_forward", per_head_rows)
+    torch.testing.assert_close(hoisted, step(), rtol=0, atol=0)
+
+
 def test_embedding_stub_frontend_matches_reference():
     """``frontend="embedding_stub"`` (chameleon-34b: qk-norm, dense) takes
     precomputed embeddings instead of tokens."""

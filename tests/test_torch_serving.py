@@ -315,15 +315,26 @@ def test_serve_launcher_defaults_to_the_card():
 
 
 def test_launcher_traffic_puts_the_spike_in_the_middle_third():
-    """The port's launcher spikes ticks [T/3, 2T/3); the reference's phase
-    list reads as durations and spikes the first third (ROADMAP.md §3)."""
+    """The port's launcher offers the reference launcher's arrivals: for a
+    spike and for flat traffic, ``RateSchedule(traffic(...)).rate_at(t)``
+    equals the reference's schedule, built from its phase list
+    (``src/repro/launch/serve.py``), at every tick of a 24-tick run and
+    past it.  Those phases are durations, so the spike lands in the first
+    third, not the middle one the reference's comment names (the name of
+    this test is the port's old behaviour; ROADMAP.md section 3)."""
     from repro_torch.launch.serve import traffic
-    sched = RateSchedule(traffic(24, 40.0, 160.0))
-    assert [sched.rate_at(t) for t in range(24)] == \
-        [40.0] * 8 + [160.0] * 8 + [40.0] * 8
-    assert RateSchedule(traffic(10, 5.0, 0.0)).rate_at(9) == 5.0
-    ref = JRateSchedule([(0, 40.0), (24 // 3, 160.0), (2 * 24 // 3, 40.0)])
-    assert ref.rate_at(0) == 160.0 and ref.rate_at(8) == 40.0
+    ticks = 24
+    for rate, spike in ((40.0, 160.0), (40.0, 0.0), (5.0, 0.0)):
+        phases = [(0, rate)]
+        if spike > 0:
+            phases = [(0, rate), (ticks // 3, spike),
+                      (2 * ticks // 3, rate)]
+        want = JRateSchedule(phases)
+        got = RateSchedule(traffic(ticks, rate, spike))
+        assert [got.rate_at(t) for t in range(ticks + 8)] == \
+            [want.rate_at(t) for t in range(ticks + 8)]
+    assert [RateSchedule(traffic(ticks, 40.0, 160.0)).rate_at(t)
+            for t in range(ticks)] == [160.0] * 8 + [40.0] * 16
 
 
 @pytest.mark.parametrize("arch", ARCHS)
