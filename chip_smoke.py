@@ -15,8 +15,10 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
                  both bfloat16 bodies at every dense head size; linear_scan
                  within 1e-4), and time kernel, plain version, one library
                  call where one computes the same function, and the card's
-                 bound; the two merge entries also at a multi-tile size of
-                 the ingest tier's rounds, the two model kernels at both
+                 bound; the two merge entries also at the ingest tier's
+                 round sizes (all lanes valid and the root's valid share),
+                 on every cluster-size boundary up to 2^20 lanes, with a
+                 sweep over the cluster size; the two model kernels at both
                  their decode and prefill shapes.
 3. ``q1_wordcount`` — the Q1 wordcount VSN pipeline with a mid-stream
                  reconfiguration (4 -> 16 instances), equal to the same run
@@ -210,15 +212,67 @@ def card_line() -> str:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# a substring of every merge kernel's symbol (csrc/scalegate_merge.cu), for
+# the merges' device time per tick or round in a phase's profile
+MERGE_KERNEL_SYMBOL = "scalegate_"
+
+# the cluster merge's boundaries: each cluster size's largest N and one
+# lane more (1, 2, 4, 8, 16 blocks of 4096 lanes), its capacity 65,536,
+# and one lane past it (the multi-block path)
+MERGE_BOUNDARIES = (4096, 4097, 8192, 8193, 16384, 16385, 32768, 32769,
+                    65536, 65537)
+
+
+def kernels_per_call(fn, reps: int = 5) -> float:
+    """Device kernels one ``fn()`` launches (torch.profiler; a session that
+    recorded no device activity is taken again, as in ``device_ms``)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+        if n:
+            return n / reps
+    raise AssertionError("the profiler saw no CUDA activity")
+
+
+def inf_mix(rng, n, n_sources, w_inf):
+    """Unsorted taus over ``n`` lanes with invalid lanes and valid lanes at
+    tau INT_MAX scattered over every block; with ``w_inf`` every source
+    has a valid INT_MAX lane (W = INT_MAX), else the last source has
+    none (W below it)."""
+    INF = np.iinfo(np.int32).max
+    tau = rng.integers(0, 5 * n, n).astype(np.int32)
+    src = rng.integers(0, n_sources, n).astype(np.int32)
+    valid = rng.random(n) < 0.6
+    at_inf = rng.random(n) < 0.2
+    tau[at_inf] = INF
+    valid[at_inf & (rng.random(n) < 0.5)] = True
+    for s in range(n_sources):
+        lanes = np.flatnonzero(src == s)
+        if w_inf or s < n_sources - 1:
+            tau[lanes[0]], valid[lanes[0]] = INF, True
+        else:
+            tau[lanes[tau[lanes] == INF]] = 7
+    return tau, src, valid
+
+
 def check_scalegate_merge(dev):
-    from repro_torch.kernels.scalegate_merge.ops import scalegate_merge_op
+    from repro_torch.kernels.scalegate_merge import ops
     from repro_torch.kernels.scalegate_merge.ref import scalegate_merge_ref
+    scalegate_merge_op = ops.scalegate_merge_op
     INF = torch.iinfo(torch.int32).max
     rng = np.random.default_rng(11)
     cases = []
     # 22,536 = the pipeline's buffer in a q1_ingest_tier round of 8 leaf
-    # rows (2048 + 20,480 + 8 lanes), past one shared-memory tile
-    for n in (2, 127, 128, 386, 513, 4097, 8192, 16384, 22536, 2 ** 20):
+    # rows (2048 + 20,480 + 8 lanes)
+    for n in sorted({2, 127, 128, 386, 513, 4097, 8192, 16384, 22536,
+                     2 ** 20, *MERGE_BOUNDARIES}):
         tau = np.sort(rng.integers(0, 5 * n, n)).astype(np.int32)
         src = rng.integers(0, 3, n).astype(np.int32)
         cases.append((f"random_n{n}", tau, src, rng.random(n) < 0.9, 3))
@@ -236,57 +290,104 @@ def check_scalegate_merge(dev):
                                       dtype=np.int64).astype(np.int32),
          rng.integers(0, 4, n).astype(np.int32), rng.random(n) < 0.9, 4),
     ]
-    for name, tau, src, valid, ns in cases:
-        args = [torch.as_tensor(a, device=dev) for a in (tau, src, valid)]
-        got = scalegate_merge_op(*args, n_sources=ns)
+    n = 22536
+    cases += [
+        ("unsorted_22536", rng.integers(0, 5 * n, n).astype(np.int32),
+         rng.integers(0, 3, n).astype(np.int32), rng.random(n) < 0.9, 3),
+        ("inf_mix_w_inf_22536", *inf_mix(rng, n, 3, True), 3),
+        ("inf_mix_w_below_22536", *inf_mix(rng, n, 3, False), 3),
+        ("all_invalid_22536", rng.integers(0, 99, n).astype(np.int32),
+         np.zeros(n, np.int32), np.zeros(n, bool), 1),
+        ("duplicates_across_blocks_22536",
+         np.sort(rng.integers(0, 4, n)).astype(np.int32),
+         rng.integers(0, 2, n).astype(np.int32), rng.random(n) < 0.9, 2),
+        ("unsorted_duplicates_22536", rng.integers(0, 4, n).astype(np.int32),
+         rng.integers(0, 2, n).astype(np.int32), rng.random(n) < 0.9, 2),
+    ]
+
+    def compare(name, args, ns, cluster=None):
+        got = ops._cuda(*args, n_sources=ns, cluster=cluster)
         want = scalegate_merge_ref(*args, n_sources=ns)
         for g, w_, what in zip(got, want, ("order", "ready", "wmark")):
             if not torch.equal(g, w_):
                 raise AssertionError(f"scalegate_merge {name}: {what} differs")
-    def timed(n):
+
+    for name, tau, src, valid, ns in cases:
+        compare(name, [torch.as_tensor(a, device=dev)
+                       for a in (tau, src, valid)], ns)
+
+    def timed(n, valid_share=None):
         """Kernel, plain version, library sort and bound at ``n`` lanes of
-        one source, the last lane invalid (the control lane)."""
-        tau = torch.as_tensor(np.sort(rng.integers(0, 5 * n, n))
+        one source, sorted taus; the last lane invalid (the control lane),
+        or with ``valid_share`` that share of the lanes valid."""
+        trng = np.random.default_rng(n)     # the same data in every run
+        tau = torch.as_tensor(np.sort(trng.integers(0, 5 * n, n))
                               .astype(np.int32), device=dev)
         src = torch.zeros(n, dtype=torch.int32, device=dev)
-        valid = torch.ones(n, dtype=torch.bool, device=dev)
-        valid[-1] = False
+        if valid_share is None:
+            valid = torch.ones(n, dtype=torch.bool, device=dev)
+            valid[-1] = False
+        else:
+            valid = torch.as_tensor(trng.random(n) < valid_share, device=dev)
         key = ((torch.where(valid, tau, INF).to(torch.int64) + 2 ** 31)
                << 32) | torch.arange(n, device=dev)
         ms, by = bound(n * (4 + 4 + 1) + n * 8 + 4,
                        int_ops=n * math.ceil(math.log2(n)))
+        run = lambda: scalegate_merge_op(tau, src, valid, n_sources=1)
         return dict(
-            shape=f"N={n}, n_sources=1",
-            **timings(lambda: scalegate_merge_op(tau, src, valid,
-                                                 n_sources=1),
+            shape=f"N={n}, n_sources=1, {int(valid.sum())} valid",
+            cluster=ops.plan(n).cluster, kernels_per_call=kernels_per_call(run),
+            **timings(run,
                       lambda: scalegate_merge_ref(tau, src, valid,
                                                   n_sources=1),
                       lambda: torch.argsort(key, stable=True)),
             bound_ms=ms, bound_by=by)
 
-    # the q1 main-path shape (stash 2048 + tick 2048 + 1 ctrl lane, one
-    # tile), and the multi-tile shape of a q1_ingest_tier round of 8 rows
+    def cluster_sweep(n=22536):
+        """Device ms at ``n`` unsorted lanes for every cluster size that
+        holds them, each held against the plain version first."""
+        args = [torch.as_tensor(a, device=dev) for a in (
+            rng.integers(0, 5 * n, n).astype(np.int32),
+            rng.integers(0, 3, n).astype(np.int32), rng.random(n) < 0.9)]
+        out = {}
+        for c in range(-(-n // ops.SHARE), ops.MAX_CLUSTER + 1):
+            compare(f"sweep_cluster{c}", args, 3, cluster=c)
+            out[c] = device_ms(lambda: ops._cuda(*args, n_sources=3,
+                                                 cluster=c))
+        return out
+
+    # the q1 main-path shape (stash 2048 + tick 2048 + 1 ctrl lane), the
+    # pipeline's buffer in a q1_ingest_tier round of 8 rows, and that
+    # buffer with the ingest root's valid share (~2,048 of 22,536)
     return dict(name="scalegate_merge", cases=len(cases), max_abs_err=0.0,
-                **timed(4097), multi_tile=timed(22536))
+                **timed(4097), multi_tile=timed(22536),
+                tier_valid=timed(22536, 2048 / 22536),
+                cluster_sweep_ms=cluster_sweep(),
+                max_active_clusters={c: ops.max_clusters(c)
+                                     for c in (1, 2, 4, 8, 16)})
 
 
 def check_scalegate_merge_stacked(dev):
     from repro_torch.kernels.scalegate_merge.ops import \
-        scalegate_merge_stacked_op
+        scalegate_merge_stacked_op, plan
     from repro_torch.kernels.scalegate_merge.ref import \
         scalegate_merge_stacked_ref
     INF = np.iinfo(np.int32).max
     rng = np.random.default_rng(13)
     C = 2048
 
-    def root_round(rows, n_reports=8, active=5):
+    def root_round(rows, n_reports=8, active=5, c=C, valid_per_row=None,
+                   g=rng):
         """Stash rows then leaf chunk rows: each a sorted run whose first
         lanes are valid (a chunk padded with invalid lanes)."""
-        tau = np.sort(rng.integers(0, 40_000, (rows, C)), axis=1)
-        valid = np.arange(C)[None, :] < rng.integers(0, C + 1, (rows, 1))
+        tau = np.sort(g.integers(0, 40_000, (rows, c)), axis=1)
+        n_valid = (g.integers(0, c + 1, (rows, 1)) if valid_per_row is None
+                   else g.integers(valid_per_row // 2,
+                                   3 * valid_per_row // 2 + 1, (rows, 1)))
+        valid = np.arange(c)[None, :] < n_valid
         reports = np.full(n_reports, INF, np.int64)
-        reports[:active] = rng.integers(10_000, 30_000, active)
-        return (tau.astype(np.int32), rng.integers(0, 8, (rows, C)), valid,
+        reports[:active] = g.integers(10_000, 30_000, active)
+        return (tau.astype(np.int32), g.integers(0, 8, (rows, c)), valid,
                 reports)
 
     def fuzz(rows, c):                 # the reference test's rounds
@@ -298,6 +399,8 @@ def check_scalegate_merge_stacked(dev):
 
     cases = {"root_12288": root_round(6), "root_20480": root_round(10),
              "lanes_2^20": root_round(512)}
+    for n in MERGE_BOUNDARIES:
+        cases[f"boundary_1x{n}"] = root_round(1, c=n)
     for rows, c in ((2, 32), (3, 32), (4, 48), (6, 96)):
         cases[f"ref_{rows}x{c}"] = fuzz(rows, c)
     tau, src, valid, reports = root_round(6)
@@ -310,6 +413,23 @@ def check_scalegate_merge_stacked(dev):
     cases["inf_reports"] = (tau, src, valid, np.full(8, INF, np.int64))
     cases["reports_128"] = (tau, src, valid,
                             rng.integers(0, 40_000, 128))
+    # 22,536 lanes as [3, 7512]
+    tau, src, valid, reports = root_round(3, c=7512)
+    shape = tau.shape
+    cases["unsorted_22536"] = (rng.integers(0, 40_000, shape), src,
+                               rng.random(shape) < 0.9, reports)
+    for w_inf in (True, False):
+        t, _, v = inf_mix(rng, tau.size, 1, True)
+        cases[f"inf_mix_w_{'inf' if w_inf else 'below'}_22536"] = (
+            t.reshape(shape), src, v.reshape(shape),
+            np.full(8, INF, np.int64) if w_inf else reports)
+    cases["all_invalid_22536"] = (tau, src, np.zeros(shape, bool), reports)
+    cases["duplicates_across_blocks_22536"] = (
+        np.sort(rng.integers(0, 4, shape), axis=1), src,
+        rng.random(shape) < 0.9, np.full(8, 2, np.int64))
+    cases["unsorted_duplicates_22536"] = (
+        rng.integers(0, 4, shape), src, rng.random(shape) < 0.9,
+        np.full(8, 2, np.int64))
     for name, (tau, src, valid, reports) in cases.items():
         args = [torch.as_tensor(np.asarray(a, dtype), device=dev)
                 for a, dtype in ((tau, np.int32), (src, np.int32),
@@ -320,31 +440,38 @@ def check_scalegate_merge_stacked(dev):
             if not torch.equal(g, w_):
                 raise AssertionError(f"scalegate_merge_stacked {name}: "
                                      f"{what} differs")
-    def timed(rows):
+
+    def timed(rows, valid_per_row=None):
         """Kernel, plain version, library sort and bound on one root round
         of ``rows`` rows of ``C`` lanes."""
         tau, src, valid, reports = (
             torch.as_tensor(np.asarray(a, dtype), device=dev)
-            for a, dtype in zip(root_round(rows), (np.int32, np.int32, bool,
-                                                   np.int32)))
+            for a, dtype in zip(root_round(   # the same data in every run
+                rows, valid_per_row=valid_per_row,
+                g=np.random.default_rng(rows)),
+                                (np.int32, np.int32, bool, np.int32)))
         n, n_rep = tau.numel(), reports.numel()
         key = ((torch.where(valid, tau, INF).to(torch.int64) + 2 ** 31)
                << 32) | torch.arange(n, device=dev).reshape(tau.shape)
         ms, by = bound(n * (4 + 1) + n * 8 + 4 * n_rep,
                        int_ops=n * math.ceil(math.log2(n)))
+        run = lambda: scalegate_merge_stacked_op(tau, src, valid, reports)
         return dict(
-            shape=f"[{rows}, {C}] = {n} lanes, {n_rep} reports",
-            **timings(lambda: scalegate_merge_stacked_op(tau, src, valid,
-                                                         reports),
+            shape=f"[{rows}, {C}] = {n} lanes, {int(valid.sum())} valid, "
+                  f"{n_rep} reports",
+            cluster=plan(n).cluster, kernels_per_call=kernels_per_call(run),
+            **timings(run,
                       lambda: scalegate_merge_stacked_ref(tau, src, valid,
                                                           reports),
                       lambda: torch.argsort(key.reshape(-1), stable=True)),
             bound_ms=ms, bound_by=by)
 
-    # the root's steady round (4096 stash + 4 leaf rows of 2048, one tile)
-    # and a round with a doubled row bucket (20,480 lanes, two tiles)
+    # the root's steady round (4096 stash + 4 leaf rows of 2048), a round
+    # with a doubled row bucket (20,480 lanes), and the steady round with
+    # the root's valid share (~2,048 of 12,288)
     return dict(name="scalegate_merge_stacked", cases=len(cases),
-                max_abs_err=0.0, **timed(6), multi_tile=timed(10))
+                max_abs_err=0.0, **timed(6), multi_tile=timed(10),
+                tier_valid=timed(6, valid_per_row=2048 // 6))
 
 
 def check_segment_aggregate(dev):
@@ -806,7 +933,8 @@ def q1_wordcount(dev):
     for i in range(24):
         prof_pipe.step(batches[i], reconfig=rc if i == RC_AT else None)
     torch.cuda.synchronize()
-    profile = device_profile(lambda i: prof_pipe.step(batches[24 + i]), 4)
+    profile = device_profile(lambda i: prof_pipe.step(batches[24 + i]), 4,
+                             kernel=MERGE_KERNEL_SYMBOL)
 
     steady = [g["seconds"] for i, g in enumerate(gpu) if i not in (0, *sw_ticks)]
     return dict(
@@ -1076,7 +1204,8 @@ def q1_ingest_tier(dev, n_ticks=40, tick=2048, join_at=12, leave_at=24):
     for i in range(first):
         step(i)
     sync()
-    profile = device_profile(lambda i: step(first + i), 4)
+    profile = device_profile(lambda i: step(first + i), 4,
+                             kernel=MERGE_KERNEL_SYMBOL)
     for _ in it:                    # drain the tier so its threads stop
         pass
 
@@ -1362,7 +1491,9 @@ def main() -> int:
         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
         library_ms=r["library_ms"], shape=r["shape"],
         **{k: r[k] for k in ("single_ms", "device_ms", "library_device_ms",
-                             "multi_tile", "prefill", "decode_split_ms",
+                             "multi_tile", "tier_valid", "cluster_sweep_ms",
+                             "max_active_clusters", "prefill",
+                             "decode_split_ms",
                              "max_abs_err_bf16") if k in r})
         for r in rows]})
     emit({"ok": True, "device": {"platform": "gpu",

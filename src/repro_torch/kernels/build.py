@@ -39,11 +39,15 @@ _FUNCTIONS = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 PROTOTYPES = {
-    # tau, src, valid, n, n_sources, keys, order, ready, wmark, stream
-    "repro_scalegate_merge": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
-    # tau2, valid2, n, reports, n_reports, keys, order, ready, wmark, stream
-    "repro_scalegate_merge_stacked": (_P, _P, _I, _P, _I, _P, _P, _P, _P,
-                                      _P),
+    # tau, src, valid, n, n_sources, cluster, keys, order, ready, wmark,
+    # stream
+    "repro_scalegate_merge": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
+    # tau2, valid2, n, reports, n_reports, cluster, keys, order, ready,
+    # wmark, stream
+    "repro_scalegate_merge_stacked": (_P, _P, _I, _P, _I, _I, _P, _P, _P,
+                                      _P, _P),
+    # cluster
+    "repro_scalegate_max_clusters": (_I,),
     # keys, slots, vals, acc, n, w, k, s, stream
     "repro_segment_aggregate": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # new_tau, new_src, new_pay, b, p, st_tau, st_src, st_pay, k, r,

@@ -4,12 +4,15 @@ the CUDA kernels (``csrc/scalegate_merge.cu``) on the card.
 Held against ``src/repro/kernels/scalegate_merge/ops.py``: the flat merge
 ``scalegate_merge`` and the stacked-leaf root merge
 ``scalegate_merge_stacked``.  Unlike the Pallas wrappers, which pad any N
-to a power of two of at least 128 lanes in Python, the CUDA launchers pad
-inside the kernel; the wrappers only validate, allocate the outputs (and,
-past one shared-memory tile, the global key scratch) and launch.
+to a power of two of at least 128 lanes in Python, the CUDA launchers take
+N as it is; the wrappers validate, pick the launch from N alone
+(``plan``), allocate the outputs (and, past the cluster path's capacity,
+the multi-block path's key scratch) and launch.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -17,19 +20,46 @@ from repro_torch.kernels import build, dispatch
 from repro_torch.kernels.scalegate_merge.ref import (
     scalegate_merge_ref, scalegate_merge_stacked_ref)
 
-MAX_LANES = 1 << 20      # the key scratch of the multi-block path: 8 MB
-TILE = 16384             # lanes one block sorts in shared memory (128 KB)
-MAX_REPORTS = 128        # leaf reports of one stacked call (one tile)
-MIN_LANES = 128
+SHARE = 4096             # lanes one cluster block holds (512 threads x 8)
+MAX_CLUSTER = 16         # blocks of one cluster (non-portable above 8)
+CLUSTER_LANES = SHARE * MAX_CLUSTER   # the cluster path's capacity
+CLUSTER_SMEM = 2 * (SHARE + SHARE // 16) * 8  # two padded key buffers (68 KB)
+MAX_LANES = 1 << 20      # the multi-block path's key scratch: 8 MB
+MAX_REPORTS = 128        # leaf reports of one stacked call
 
 
-def _outputs(shape, n: int, dev):
-    """order, ready, wmark and the key scratch (None within one tile)."""
-    n_pad = max(MIN_LANES, 1 << (n - 1).bit_length())
-    keys = (torch.empty((n_pad,), dtype=torch.int64, device=dev)
-            if n_pad > TILE else None)
-    order = torch.empty(shape, dtype=torch.int32, device=dev)
-    ready = torch.empty(shape, dtype=torch.int32, device=dev)
+class Plan(NamedTuple):
+    """One merge's launch: ``cluster`` blocks of ``share`` lanes each
+    (block b takes lanes [b * share, min((b + 1) * share, n))), or, with
+    ``cluster`` 0, the multi-block path over ``scratch`` padded lanes."""
+    cluster: int
+    share: int
+    scratch: int
+
+
+def plan(n: int, cluster: Optional[int] = None) -> Plan:
+    """The launch of a merge over ``n`` lanes, a function of ``n`` alone:
+    one cluster of the fewest blocks, a power of two, that hold ``n`` at
+    ``SHARE`` lanes a block, up to ``CLUSTER_LANES``; past it the
+    multi-block path.  ``cluster`` forces the cluster size (the card's
+    sweep over it)."""
+    if not 1 <= n <= MAX_LANES:
+        raise ValueError(f"a merge takes 1..{MAX_LANES} lanes, got {n}")
+    if cluster is None:
+        if n > CLUSTER_LANES:
+            return Plan(0, 0, 1 << (n - 1).bit_length())
+        cluster = 1 << (-(-n // SHARE) - 1).bit_length()
+    if not 1 <= cluster <= MAX_CLUSTER or -(-n // cluster) > SHARE:
+        raise ValueError(f"{n} lanes do not fit a cluster of {cluster}")
+    return Plan(cluster, -(-n // cluster), 0)
+
+
+def _outputs(shape, p: Plan, dev):
+    """order, ready (two views of one allocation), wmark and the key
+    scratch (None on the cluster path)."""
+    keys = (torch.empty((p.scratch,), dtype=torch.int64, device=dev)
+            if p.scratch else None)
+    order, ready = torch.empty((2,) + shape, dtype=torch.int32, device=dev)
     wmark = torch.empty((1,), dtype=torch.int32, device=dev)
     return keys, order, ready, wmark
 
@@ -38,12 +68,25 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _launch(name: str, dev, *args) -> None:
+    """Call ``repro_<name>`` on ``dev``'s current stream, switching device
+    only when ``dev`` is not current, and raise on a launch error."""
+    fn = build.function(f"repro_{name}")
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, stream)
+    build.raise_on_error(name, rc)
+
+
 def _check_lanes(name: str, n: int) -> None:
     if not 1 <= n <= MAX_LANES:
         raise ValueError(f"{name} takes 1..{MAX_LANES} lanes, got {n}")
 
 
-def _cuda(tau, src, valid, *, n_sources: int):
+def _cuda(tau, src, valid, *, n_sources: int, cluster: Optional[int] = None):
     n = tau.shape[0]
     dev = tau.device
     dispatch.check("tau", tau, torch.int32, (n,), dev)
@@ -52,17 +95,16 @@ def _cuda(tau, src, valid, *, n_sources: int):
     _check_lanes("scalegate_merge", n)
     if not 1 <= n_sources <= 1024:
         raise ValueError(f"n_sources must be in 1..1024, got {n_sources}")
-    keys, order, ready, wmark = _outputs((n,), n, dev)
-    with torch.cuda.device(dev):
-        rc = build.library().repro_scalegate_merge(
-            tau.data_ptr(), src.data_ptr(), valid.data_ptr(), n, n_sources,
-            _ptr(keys), order.data_ptr(), ready.data_ptr(), wmark.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    build.raise_on_error("scalegate_merge", rc)
+    p = plan(n, cluster)
+    keys, order, ready, wmark = _outputs((n,), p, dev)
+    _launch("scalegate_merge", dev, tau.data_ptr(), src.data_ptr(),
+            valid.data_ptr(), n, n_sources, p.cluster, _ptr(keys),
+            order.data_ptr(), ready.data_ptr(), wmark.data_ptr())
     return order, ready, wmark
 
 
-def _cuda_stacked(tau2, src2, valid2, reports):
+def _cuda_stacked(tau2, src2, valid2, reports, *,
+                  cluster: Optional[int] = None):
     """``src2`` is accepted and ignored, as in the reference: the (tau,
     arrival) order does not consult it."""
     del src2
@@ -79,14 +121,20 @@ def _cuda_stacked(tau2, src2, valid2, reports):
                          f"leaf reports, got {n_reports}")
     dispatch.check("reports", reports, torch.int32, (n_reports,), dev)
     _check_lanes("scalegate_merge_stacked", n)
-    keys, order, ready, wmark = _outputs(shape, n, dev)
-    with torch.cuda.device(dev):
-        rc = build.library().repro_scalegate_merge_stacked(
-            tau2.data_ptr(), valid2.data_ptr(), n, reports.data_ptr(),
-            n_reports, _ptr(keys), order.data_ptr(), ready.data_ptr(),
-            wmark.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    build.raise_on_error("scalegate_merge_stacked", rc)
+    p = plan(n, cluster)
+    keys, order, ready, wmark = _outputs(shape, p, dev)
+    _launch("scalegate_merge_stacked", dev, tau2.data_ptr(),
+            valid2.data_ptr(), n, reports.data_ptr(), n_reports, p.cluster,
+            _ptr(keys), order.data_ptr(), ready.data_ptr(), wmark.data_ptr())
     return order, ready, wmark
+
+
+def max_clusters(cluster: int) -> int:
+    """How many clusters of ``cluster`` merge blocks the current card holds
+    at once (0: it cannot schedule one)."""
+    count = build.function("repro_scalegate_max_clusters")(cluster)
+    build.raise_on_error("scalegate_max_clusters", max(0, -count))
+    return count
 
 
 scalegate_merge_op = dispatch.register(dispatch.Kernel(

@@ -6,6 +6,7 @@ version and count no launch."""
 
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import threading
@@ -19,6 +20,7 @@ from repro.kernels.scalegate_merge.ops import scalegate_merge_op as j_merge
 from repro.kernels.segment_aggregate.ops import segment_aggregate_op as j_agg
 from repro.kernels.window_join.ops import window_join_op as j_join
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.scalegate_merge import ops as merge_ops
 from repro_torch.kernels.scalegate_merge.ops import scalegate_merge_op
 from repro_torch.kernels.segment_aggregate.ops import segment_aggregate_op
 from repro_torch.kernels.window_join.ops import window_join_op
@@ -47,12 +49,26 @@ def _merge_case(name):
     elif name == "negative_tau":
         tau = rng.integers(-2 ** 31, 2 ** 31 - 1, n,
                            dtype=np.int64).astype(np.int32)
+    elif name.startswith("inf_among_invalid"):
+        # valid lanes at tau INT_MAX scattered among invalid ones; with
+        # "_w_inf" every source has one, so W is INT_MAX and they are ready
+        at_inf = rng.random(n) < 0.3
+        tau[at_inf] = INF
+        valid = rng.random(n) < 0.5
+        if name.endswith("_w_inf"):
+            for s in range(ns):
+                tau[s], src[s], valid[s] = INF, s, True
+    elif name == "unsorted_duplicates":
+        tau = rng.integers(0, 5, n).astype(np.int32)
     return tau, src, valid, ns
 
 
 @pytest.mark.parametrize("name", ["random", "nonpow2_200", "pow2_128",
                                   "duplicate_tau", "all_inf", "all_invalid",
-                                  "single_source", "negative_tau"])
+                                  "single_source", "negative_tau",
+                                  "inf_among_invalid",
+                                  "inf_among_invalid_w_inf",
+                                  "unsorted_duplicates"])
 def test_scalegate_merge_plain_equals_pallas(name):
     tau, src, valid, ns = _merge_case(name)
     jo, jr, jw = j_merge(tau, src, valid, n_sources=ns,
@@ -63,6 +79,50 @@ def test_scalegate_merge_plain_equals_pallas(name):
     for j, p in ((jo, po), (jr, pr), (jw, pw)):
         assert p.dtype == torch.int32
         np.testing.assert_array_equal(np.asarray(j), p.numpy())
+
+
+@pytest.mark.parametrize("n", [1, 2, 127, 4097, 12288, 20480, 22536,
+                               merge_ops.CLUSTER_LANES,
+                               merge_ops.CLUSTER_LANES + 1, 2 ** 20])
+def test_scalegate_merge_launch_plan(n):
+    """The launch is a function of N alone: up to the cluster path's
+    capacity one cluster of at most 16 blocks whose shares cover every
+    lane once and fit a block's key buffers; past it the multi-block
+    path over a power-of-two key scratch."""
+    p = merge_ops.plan(n)
+    assert p == merge_ops.plan(n)
+    if n > merge_ops.CLUSTER_LANES:
+        assert p.cluster == 0 and p.share == 0
+        assert p.scratch >= n and p.scratch & (p.scratch - 1) == 0
+        return
+    assert 1 <= p.cluster <= merge_ops.MAX_CLUSTER and p.scratch == 0
+    shares = [np.arange(b * p.share, min((b + 1) * p.share, n))
+              for b in range(p.cluster)]
+    np.testing.assert_array_equal(np.concatenate(shares), np.arange(n))
+    assert all(1 <= len(lanes) <= merge_ops.SHARE for lanes in shares)
+    # two buffers of SHARE 8-byte keys, within a block's 227 KB
+    assert 2 * 8 * p.share <= merge_ops.CLUSTER_SMEM <= 227 * 1024
+    # the fewest blocks, a power of two, that hold N
+    assert p.cluster & (p.cluster - 1) == 0
+    assert p.cluster == 1 or -(-n // (p.cluster // 2)) > merge_ops.SHARE
+
+
+@pytest.mark.parametrize("n,cluster", [(0, None), (2 ** 20 + 1, None),
+                                       (22536, 5), (100, 17), (100, 0)])
+def test_scalegate_merge_launch_plan_refuses(n, cluster):
+    with pytest.raises(ValueError):
+        merge_ops.plan(n, cluster)
+
+
+def test_scalegate_phase_trace_stamps_every_phase():
+    """The phase trace's anchors still mark each step of the cluster
+    kernel once, so the card's trace covers every phase."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.scalegate_merge import phase_trace
+    text = phase_trace.instrument(
+        (build.CSRC / "scalegate_merge.cu").read_text())
+    stamps = [int(j) for j in re.findall(r"STAMP\((\d)\);", text)]
+    assert stamps == list(range(len(phase_trace.PHASES) + 1))
 
 
 @pytest.mark.parametrize("w,dead", [(1, False), (2, False), (1, True)])
