@@ -17,9 +17,14 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
                  call where one computes the same function, and the card's
                  bound; the two merge entries also at the ingest tier's
                  round sizes (all lanes valid and the root's valid share),
-                 on every cluster-size boundary up to 2^20 lanes, with a
-                 sweep over the cluster size; the two model kernels at both
-                 their decode and prefill shapes.
+                 on every cluster-size boundary, past 2^20 lanes, at 0 and
+                 2,000 sources, with a sweep over the cluster size, and
+                 ScaleGate ``push`` at 2,000 sources and 2^20 + 1 lanes equal
+                 to its CPU run; window_join at n_attrs 12 and 524,289 key
+                 rows; flash_attention at 65,544 (lane, KV head) pairs; the
+                 two model kernels at their decode and prefill shapes
+                 (linear_scan also at T 1024, strong and zero decays, the
+                 chunk's edges, and a sweep over the chunk length).
 3. ``q1_wordcount`` — the Q1 wordcount VSN pipeline with a mid-stream
                  reconfiguration (4 -> 16 instances), equal to the same run
                  on the CPU (outputs, switch flags, instance loads), with 0
@@ -60,6 +65,11 @@ before its card run and reads them right after, and the ``{"kernels":
 warm-up, ``single_ms`` the median of 20 single launches (which also spans
 a wrapper's host time), ``device_ms`` the profiler's device time of one
 call, and the same for the plain version and the library call.
+
+    python3 chip_smoke.py --scan-turns <parent checkout>
+
+times linear_scan's rows (decode, prefill T 128 and T 1024) of another
+checkout and of this one in turns, parent, this, this, parent, on one card.
 """
 
 import dataclasses
@@ -147,15 +157,16 @@ def device_ms(fn, setup=None, kernel=None, reps: int = 20) -> float:
     raise AssertionError(f"the profiler saw no {kernel or 'CUDA'} activity")
 
 
-def timings(kernel, plain, library=None, setup=None):
+def timings(kernel, plain, library=None, setup=None, plain_reps=20):
     """The columns of a kernel's row: ``ms`` (back-to-back mean),
     ``single_ms`` (one launch alone), ``device_ms`` (profiler), the plain
-    version's ``plain_ms``, and the library call's ``library_ms`` and
-    ``library_device_ms`` (None without one)."""
+    version's ``plain_ms`` (``plain_reps`` pairs of ``plain_reps`` calls),
+    and the library call's ``library_ms`` and ``library_device_ms`` (None
+    without one)."""
     return dict(
         ms=median_ms(kernel, setup), single_ms=single_ms(kernel, setup),
         device_ms=device_ms(kernel, setup),
-        plain_ms=median_ms(plain, setup),
+        plain_ms=median_ms(plain, setup, reps=plain_reps, inner=plain_reps),
         library_ms=None if library is None else median_ms(library, setup),
         library_device_ms=(None if library is None
                            else device_ms(library, setup)))
@@ -290,6 +301,15 @@ def check_scalegate_merge(dev):
                                       dtype=np.int64).astype(np.int32),
          rng.integers(0, 4, n).astype(np.int32), rng.random(n) < 0.9, 4),
     ]
+    # any n_sources: 0 (no fold, what push asks for), past the shared-memory
+    # fold (1024) on the cluster path and on the multi-block path, and N
+    # past 2^20 lanes
+    for n, ns in ((8000, 0), (8000, 2000), (70000, 2000), (70000, 0),
+                  (2 ** 20 + 1, 3), (2 ** 20 + 1, 0)):
+        cases.append((f"n{n}_sources{ns}",
+                      rng.integers(0, 5 * n, n).astype(np.int32),
+                      rng.integers(0, max(ns, 1), n).astype(np.int32),
+                      rng.random(n) < 0.9, ns))
     n = 22536
     cases += [
         ("unsorted_22536", rng.integers(0, 5 * n, n).astype(np.int32),
@@ -360,11 +380,72 @@ def check_scalegate_merge(dev):
     # pipeline's buffer in a q1_ingest_tier round of 8 rows, and that
     # buffer with the ingest root's valid share (~2,048 of 22,536)
     return dict(name="scalegate_merge", cases=len(cases), max_abs_err=0.0,
+                push_cases=check_push_limits(dev),
                 **timed(4097), multi_tile=timed(22536),
                 tier_valid=timed(22536, 2048 / 22536),
                 cluster_sweep_ms=cluster_sweep(),
                 max_active_clusters={c: ops.max_clusters(c)
                                      for c in (1, 2, 4, 8, 16)})
+
+
+def check_push_limits(dev):
+    """ScaleGate ``push`` on the card against the CPU run of the same two
+    pushes, where the card took less before: 2,000 sources, and a merge
+    buffer of 2^20 + 1 lanes (stash capacity 2^19 plus 2^19 + 1 tuples).
+    Each source's tuples arrive sorted, and no two tuples share a tau, so
+    the card's (tau, arrival) order and the CPU's (tau, source, arrival)
+    are one order over the valid lanes: each emitted batch's ready mask
+    and its ready prefix (every field, in order), the stash's kept prefix,
+    the frontiers and the overflow must be equal exactly.  (Invalid lanes
+    sort last in arrival order on the card and by source on the CPU; they
+    carry nothing.)"""
+    from repro_torch.core import scalegate as sg
+    from repro_torch.core import tuples as T
+    out = {}
+    for name, n_sources, cap, b in (("sources_2000", 2000, 8192, 8000),
+                                    ("lanes_2^20+1", 8, 2 ** 19,
+                                     2 ** 19 + 1)):
+        g = np.random.default_rng(n_sources)
+        ticks = []
+        for i in range(2):
+            src = np.sort(np.arange(b) % n_sources).astype(np.int32)
+            tau = (g.permutation(b) * 2 + i * 2 * b).astype(np.int32)
+            tau = tau[np.lexsort((tau, src))]      # sorted within a source
+            ticks.append(dict(tau=tau, payload=g.random((b, 2), np.float32),
+                              keys=g.integers(0, 64, (b, 2)).astype(np.int32),
+                              source=src, valid=g.random(b) < 0.95))
+        runs = []
+        for device in (dev, torch.device("cpu")):
+            st = sg.init_scalegate(n_sources, cap, 2, 2, device=device)
+            emitted = []
+            for tick in ticks:
+                st, ready = sg.push(st, T.make_batch(device=device, **tick))
+                emitted.append(ready)
+            runs.append((emitted, st))
+        (got, st_got), (want, st_want) = runs
+
+        def prefix_equal(what, a, b_):
+            """The valid masks are equal and a prefix, and the lanes of the
+            prefix are equal in every field."""
+            n_valid = int(b_.valid.sum())
+            if not (torch.equal(a.valid.cpu(), b_.valid)
+                    and bool(b_.valid[:n_valid].all())
+                    and all(torch.equal(getattr(a, f)[:n_valid].cpu(),
+                                        getattr(b_, f)[:n_valid])
+                            for f in T.FIELDS)):
+                raise AssertionError(f"push {name}: {what} differs")
+
+        for i, (a, b_) in enumerate(zip(got, want)):
+            prefix_equal(f"the ready prefix of tick {i}", a, b_)
+        prefix_equal("the stash", st_got.stash, st_want.stash)
+        if not (torch.equal(st_got.wmark.frontier.cpu(),
+                            st_want.wmark.frontier)
+                and int(st_got.overflow) == int(st_want.overflow)):
+            raise AssertionError(f"push {name}: gate differs")
+        out[name] = dict(lanes=cap + b, n_sources=n_sources,
+                         ready=[int(r.valid.sum()) for r in want],
+                         stash=int(st_want.stash.valid.sum()))
+    return out
 
 
 def check_scalegate_merge_stacked(dev):
@@ -572,6 +653,26 @@ def check_window_join(dev):
     for nb in (500, 37):                           # B not a multiple of 32
         compare(f"b{nb}", tuple(a[:nb] for a in args[:3]) + args[3:], ws.ws)
     compare("k1000", args[:3] + tuple(a[:1000] for a in args[3:]), ws.ws)
+    # n_attrs = P = 12, past the 8 unrolled columns (the reference kernel
+    # unrolls any n_attrs <= P), and 524,289 key rows: 65,537 tiles of 8,
+    # past grid axis y's limit, which bound the kernel before
+    g = np.random.default_rng(21)
+    for name, (nb, k, r, p, n_attrs) in (
+            ("n_attrs12", (300, 200, 16, 12, 12)),
+            ("k524289", (40, 524_289, 1, 2, 2))):
+        wide = [torch.as_tensor(a, device=dev) for a in (
+            np.sort(g.integers(100, 300, nb)).astype(np.int32),
+            g.integers(0, 2, nb).astype(np.int32),
+            g.uniform(0, 40, (nb, p)).astype(np.float32),
+            np.where(g.random((k, r)) < 0.3, -1,
+                     g.integers(0, 280, (k, r))).astype(np.int32),
+            g.integers(0, 2, (k, r)).astype(np.int32),
+            g.uniform(0, 40, (k, r, p)).astype(np.float32))]
+        got = window_join_op(*wide, ws=60, band=25.0, n_attrs=n_attrs)
+        want = window_join_ref(*wide, ws=60, band=25.0, n_attrs=n_attrs)
+        if not (torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
+                and int(want[0].sum()) > 0):
+            raise AssertionError(f"window_join {name} differs")
     row = timings(lambda: window_join_op(*args, ws=ws.ws, **kw),
                   lambda: window_join_ref(*args, ws=ws.ws, **kw))
     _, comps = window_join_op(*args, ws=ws.ws, **kw)
@@ -582,7 +683,7 @@ def check_window_join(dev):
     # a subtract, abs and compare per attribute of each opposite pair (fp)
     ms, by = bound(bsz * 16 + k * r * 16 + bsz * k * 4 + 8,
                    int_ops=4 * pairs, fp_ops=3 * 2 * int(comps))
-    return dict(name="window_join", cases=5, max_abs_err=0.0,
+    return dict(name="window_join", cases=7, max_abs_err=0.0,
                 shape=f"B={bsz}, K={k}, R={r}, P=4, n_attrs=2, "
                       f"stored={stored}, comps={int(comps)}",
                 **row, bound_ms=ms, bound_by=by)
@@ -710,6 +811,20 @@ def check_flash_attention(dev):
     compare("prefill_into_pool_bf16",
             rnd(2, 128, 40, 128, dtype=bf16).transpose(1, 2), *pool,
             n_rep=5, q_offset=ints([0, 300]), kv_index=ints([5, 2]))
+    # 8,193 lanes x 8 KV heads = 65,544 (batch row, KV head) pairs, past
+    # grid axis y's 65,535, which bound the kernel before: the split-KV
+    # decode (bf16), the SIMT body (f32) and the wgmma prefill (bf16, 4
+    # queries x 5 heads = 20 rows), over a shallow cache, lanes at mixed
+    # depths
+    lanes = 8193
+    depth = ints(np.arange(lanes) % 12)
+    for sq, dt, tag in ((1, bf16, "decode_bf16"), (1, f32, "decode_f32"),
+                        (4, bf16, "prefill_bf16")):
+        q = rnd(lanes, sq, 40, 128, dtype=dt).transpose(1, 2)
+        kc, vc = (cache(lanes, 16, 8, 128, dt) for _ in range(2))
+        compare(f"lanes8193_kv_heads8_{tag}", q, kc, vc, n_rep=5,
+                q_offset=depth)
+        del q, kc, vc
 
     def timed(b, sq, at):
         """bf16 kernel, plain version, SDPA and bound for ``b`` lanes of
@@ -773,21 +888,103 @@ def check_flash_attention(dev):
                 decode_split_ms=sweep)
 
 
-def check_linear_scan(dev):
-    """The kernel against its plain version: the rwkv6-7b prefill (64 heads,
-    128 tokens, 64 x 64 state) with and without u, its T = 1 decode over 8
-    lanes from a nonzero carried state with u per head, and the reference
-    sweep's shapes.  Tolerance 1e-4, the reference's."""
+def scan_inputs(dev, gen, bh, t, dk, dv, u_rows=None, s0=False, w=None):
+    """linear_scan's inputs, drawn on the card from ``gen``: r, k, v and u
+    normal, decays ``w`` uniform on [0.5, 0.99] unless given."""
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    if w is None:
+        w = 0.5 + 0.49 * torch.rand((bh, t, dk), generator=gen, device=dev)
+    return dict(r=rnd(bh, t, dk), k=rnd(bh, t, dk), v=rnd(bh, t, dv), w=w,
+                u=None if u_rows is None else rnd(u_rows, dk),
+                s0=rnd(bh, dk, dv) if s0 else None)
+
+
+def scan_call(f, a, **kw):
+    return f(a["r"], a["k"], a["v"], a["w"], a["u"], a["s0"], **kw)
+
+
+def scan_timed(a):
+    """linear_scan's row at the inputs ``a`` (whichever ``repro_torch`` is
+    imported): kernel, plain version and the card's bound."""
     from repro_torch.kernels.linear_scan.ops import linear_scan_op
     from repro_torch.kernels.linear_scan.ref import linear_scan_ref
-    gen = torch.Generator(device=dev).manual_seed(6)
+    bh, t, dk = a["r"].shape
+    dv = a["v"].shape[-1]
+    # r, k, w, v in; o out; S_T out (and s0 in when given); u in
+    n_bytes = 4 * (3 * bh * t * dk + 2 * bh * t * dv + bh * dk * dv
+                   + (bh * dk * dv if a["s0"] is not None else 0)
+                   + a["u"].numel())
+    # per step and (i, j): w s, k v, + (the update) and r s, + (the
+    # output); the bonus diag(u) k^T v has rank 1, so per step it is
+    # a = sum_i r_i u_i k_i (3 per i) and y_j += a v_j (2 per j)
+    fp_ops = 5 * bh * t * dk * dv
+    if a["u"] is not None:
+        fp_ops += bh * t * (3 * dk + 2 * dv)
+    ms, by = bound(n_bytes, fp_ops=fp_ops)
+    return dict(shape=f"BH {bh}, T {t}, Dk {dk}, Dv {dv}, u, "
+                      f"s0 {a['s0'] is not None}",
+                **timings(lambda: scan_call(linear_scan_op, a),
+                          lambda: scan_call(linear_scan_ref, a),
+                          plain_reps=20 if t <= 128 else 3),
+                bound_ms=ms, bound_by=by)
 
-    def inputs(bh, t, dk, dv, u_rows=None, s0=False):
-        rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
-        w = 0.5 + 0.49 * torch.rand((bh, t, dk), generator=gen, device=dev)
-        return dict(r=rnd(bh, t, dk), k=rnd(bh, t, dk), v=rnd(bh, t, dv),
-                    w=w, u=None if u_rows is None else rnd(u_rows, dk),
-                    s0=rnd(bh, dk, dv) if s0 else None)
+
+# linear_scan's timed shapes: the serve phase's decode tick (8 lanes x 64
+# heads of rwkv6-7b, from a carried state), its prefill (128 tokens) and a
+# prefill as deep as the serve configs' slots (1024)
+SCAN_TIMED = {"decode": (512, 1, True), "prefill": (64, 128, False),
+              "prefill_t1024": (64, 1024, False)}
+
+
+def scan_timed_rows(dev):
+    """linear_scan's timed rows on the same data in every run (seed 16)."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    return {name: scan_timed(scan_inputs(dev, gen, bh, t, 64, 64, u_rows=64,
+                                         s0=s0))
+            for name, (bh, t, s0) in SCAN_TIMED.items()}
+
+
+def scan_turns(parent: str) -> None:
+    """linear_scan's timed rows of the checkout at ``parent`` and of this
+    one, in turns (parent, this, this, parent), each turn a process of its
+    own that builds and imports its checkout's ``repro_torch``; one JSON
+    line a turn.
+
+        python3 chip_smoke.py --scan-turns <root of the parent checkout>
+    """
+    code = ("import json, sys; sys.path[:0] = [sys.argv[1], sys.argv[2]]; "
+            "import torch, chip_smoke; "
+            "from repro_torch.kernels import build; build.library(); "
+            "torch.backends.cuda.matmul.allow_tf32 = False; "
+            "print(json.dumps(chip_smoke.scan_timed_rows("
+            "torch.device('cuda', 0))))")
+    trees = {"parent": pathlib.Path(parent).resolve(), "change": ROOT}
+    for turn, name in enumerate(("parent", "change", "change", "parent")):
+        out = subprocess.run(
+            [sys.executable, "-c", code, str(trees[name] / "src"), str(ROOT)],
+            capture_output=True, text=True, check=True)
+        emit(dict(phase="scan_turns", turn=turn, tree=name,
+                  rows=json.loads(out.stdout.strip().splitlines()[-1])))
+
+
+def check_linear_scan(dev):
+    """The kernel against its plain version within 1e-4 (the reference's
+    tolerance), on both of its bodies: the rwkv6-7b prefill (64 heads, 128
+    tokens, 64 x 64 state) with and without u, its T = 1 decode over 8
+    lanes from a nonzero carried state with u per head, the reference
+    sweep's shapes; the chunk's edges (T = C - 1, C, C + 1) and ragged T;
+    decays that reach 0 (RWKV6's exp(-exp(x)) over x in [-6, 8], and
+    mixed from {0, 1e-30, 1e-6, 0.5, 1}), with nothing NaN; T 1024; and
+    the sweep's chunk lengths (8 and 16), each timed (``chunk_sweep_ms``)."""
+    from repro_torch.kernels.linear_scan import ops as scan_ops
+    from repro_torch.kernels.linear_scan.ops import linear_scan_op
+    from repro_torch.kernels.linear_scan.ref import CHUNK, linear_scan_ref
+    gen = torch.Generator(device=dev).manual_seed(6)
+    inputs = functools.partial(scan_inputs, dev, gen)
+    mixed = lambda *s: torch.tensor([0, 1e-30, 1e-6, 0.5, 1], device=dev)[
+        torch.randint(0, 5, s, generator=gen, device=dev)]
+    rwkv = lambda *s: torch.exp(-torch.exp(
+        -6 + 14 * torch.rand(s, generator=gen, device=dev)))
 
     cases = {"prefill_u": inputs(64, 128, 64, 64, u_rows=64),
              "prefill_no_u": inputs(64, 128, 64, 64),
@@ -796,43 +993,43 @@ def check_linear_scan(dev):
              "ref_3x128x16x24_u": inputs(3, 128, 16, 24, u_rows=3),
              "ref_2x64x8x8": inputs(2, 64, 8, 8),
              "ref_1x256x32x32": inputs(1, 256, 32, 32),
-             "reduced_16_s0": inputs(8, 9, 16, 16, u_rows=4, s0=True)}
-    call = lambda f, a: f(a["r"], a["k"], a["v"], a["w"], a["u"], a["s0"])
+             "reduced_16_s0": inputs(8, 9, 16, 16, u_rows=4, s0=True),
+             "rwkv_decays_prefill": inputs(64, 128, 64, 64, u_rows=64,
+                                           s0=True, w=rwkv(64, 128, 64)),
+             "mixed_decays_t53": inputs(16, 53, 64, 64, u_rows=16, s0=True,
+                                        w=mixed(16, 53, 64)),
+             "ragged_t130_dv40_dk128": inputs(4, 130, 128, 40, u_rows=2,
+                                              s0=True),
+             "t1024": inputs(64, 1024, 64, 64, u_rows=64, s0=True)}
+    for t in (CHUNK - 1, CHUNK, CHUNK + 1):
+        cases[f"t{t}_mixed_decays"] = inputs(64, t, 64, 64, u_rows=64,
+                                             s0=True, w=mixed(64, t, 64))
     errs = {}
-    for name, a in cases.items():
-        got = call(linear_scan_op, a)
-        want = call(linear_scan_ref, a)
+
+    def compare(name, a, kernel=linear_scan_op):
+        got = scan_call(kernel, a)
+        want = scan_call(linear_scan_ref, a)
         errs[name] = max(float((g - w_).abs().max())
                          for g, w_ in zip(got, want))
-        if not errs[name] <= 1e-4:
+        if not errs[name] <= 1e-4:       # NaN fails too
             raise AssertionError(f"linear_scan {name}: max error "
                                  f"{errs[name]}")
 
-    def timed(name):
-        a = cases[name]
-        bh, t, dk = a["r"].shape
-        dv = a["v"].shape[-1]
-        # r, k, w, v in; o out; S_T out (and s0 in when given); u in
-        n_bytes = 4 * (3 * bh * t * dk + 2 * bh * t * dv + bh * dk * dv
-                       + (bh * dk * dv if a["s0"] is not None else 0)
-                       + a["u"].numel())
-        # per step and (i, j): w s, k v, + (the update) and r s, + (the
-        # output); the bonus diag(u) k^T v has rank 1, so per step it is
-        # a = sum_i r_i u_i k_i (3 per i) and y_j += a v_j (2 per j)
-        fp_ops = 5 * bh * t * dk * dv
-        if a["u"] is not None:
-            fp_ops += bh * t * (3 * dk + 2 * dv)
-        ms, by = bound(n_bytes, fp_ops=fp_ops)
-        return dict(shape=f"BH {bh}, T {t}, Dk {dk}, Dv {dv}, u, "
-                          f"s0 {a['s0'] is not None}",
-                    **timings(lambda: call(linear_scan_op, a),
-                              lambda: call(linear_scan_ref, a)),
-                    bound_ms=ms, bound_by=by)
-
-    # the serve phase's decode tick (8 lanes x 64 heads) and its prefill
-    return dict(name="linear_scan", cases=len(cases),
+    for name, a in cases.items():
+        compare(name, a)
+    sweep = {}
+    for chunk in scan_ops.SWEEP_CHUNKS:
+        kernel = functools.partial(scan_ops._cuda, chunk=chunk)
+        for name in ("prefill_u", "mixed_decays_t53", "t1024"):
+            compare(f"{name}_chunk{chunk}", cases[name], kernel)
+        sweep[chunk] = device_ms(lambda: scan_call(kernel,
+                                                   cases["prefill_u"]))
+    rows = scan_timed_rows(dev)
+    return dict(name="linear_scan", cases=len(errs),
                 max_abs_err=max(errs.values()), errors=errs,
-                **timed("decode_s0_u"), prefill=timed("prefill_u"))
+                **rows["decode"], prefill=rows["prefill"],
+                prefill_t1024=rows["prefill_t1024"],
+                chunk_sweep_ms=sweep)
 
 
 # ---------------------------------------------------------------------------
@@ -1234,7 +1431,7 @@ def q1_ingest_tier(dev, n_ticks=40, tick=2048, join_at=12, leave_at=24):
 
 SERVE_KERNEL = {"dense": "flash_attention", "rwkv": "linear_scan"}
 # a substring of the CUDA kernels' symbols, for the profile
-SERVE_KERNEL_SYMBOL = {"dense": "flash_", "rwkv": "linear_scan_kernel"}
+SERVE_KERNEL_SYMBOL = {"dense": "flash_", "rwkv": "linear_scan_"}
 
 
 def _engine_tokens(eng, prompts, max_new, at=None, mode="vsn",
@@ -1439,10 +1636,14 @@ def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
     return out
 
 
-def main() -> int:
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
+    if argv[:1] == ["--scan-turns"]:
+        print(card_line(), flush=True)
+        scan_turns(argv[1])
+        return 0
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build, dispatch
     import repro_torch.kernels.scalegate_merge.ops      # noqa: F401
@@ -1493,7 +1694,8 @@ def main() -> int:
         **{k: r[k] for k in ("single_ms", "device_ms", "library_device_ms",
                              "multi_tile", "tier_valid", "cluster_sweep_ms",
                              "max_active_clusters", "prefill",
-                             "decode_split_ms",
+                             "prefill_t1024", "chunk_sweep_ms",
+                             "decode_split_ms", "push_cases",
                              "max_abs_err_bf16") if k in r})
         for r in rows]})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -1503,4 +1705,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -82,13 +82,17 @@ def tie_break(device) -> tuple:
 
 
 def merge_order(tau, source, valid, n_sources: int) -> torch.Tensor:
-    """The merge's total order (see ``TIE_BREAK``); int64 lane indices."""
+    """The merge's total order (see ``TIE_BREAK``); int64 lane indices.
+    On the card the kernel is asked for the order alone (``n_sources=0``:
+    no watermark fold, which ``push`` computes itself), so any number of
+    sources and any buffer length is taken, as on the CPU."""
+    del n_sources
     if tau.device.type == "cpu":
         return _stable_order(tau, source, valid)
     if tau.shape[0] < 2:
         return torch.zeros(tau.shape, dtype=torch.int64, device=tau.device)
     from repro_torch.kernels.scalegate_merge.ops import scalegate_merge_op
-    order, _, _ = scalegate_merge_op(tau, source, valid, n_sources=n_sources)
+    order, _, _ = scalegate_merge_op(tau, source, valid, n_sources=0)
     return order.long()
 
 

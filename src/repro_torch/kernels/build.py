@@ -39,9 +39,10 @@ _FUNCTIONS = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 PROTOTYPES = {
-    # tau, src, valid, n, n_sources, cluster, keys, order, ready, wmark,
-    # stream
-    "repro_scalegate_merge": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
+    # tau, src, valid, n, n_sources, fold, cluster, keys, order, ready,
+    # wmark, stream
+    "repro_scalegate_merge": (_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P,
+                              _P),
     # tau2, valid2, n, reports, n_reports, cluster, keys, order, ready,
     # wmark, stream
     "repro_scalegate_merge_stacked": (_P, _P, _I, _P, _I, _I, _P, _P, _P,
@@ -56,9 +57,9 @@ PROTOTYPES = {
                           ctypes.c_float, _I, _P, _P, _P),
     # one packed argument block (flash_attention/ops.py ARGS)
     "repro_flash_attention": (ctypes.c_char_p,),
-    # r, k, v, w, u, u_rows, s0, o, s_out, bh, t_len, dk, dv, stream
+    # r, k, v, w, u, u_rows, s0, o, s_out, bh, t_len, dk, dv, chunk, stream
     "repro_linear_scan": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
-                          _I, _P),
+                          _I, _I, _P),
 }
 
 
@@ -151,6 +152,22 @@ def function(name: str):
     if fn is None:
         fn = _FUNCTIONS[name] = getattr(library(), name)
     return fn
+
+
+def launch(name: str, dev, *args) -> None:
+    """Call ``repro_<name>(*args, stream)`` on ``dev``'s current stream,
+    switching device only when ``dev`` is not the current one, and raise
+    on a launch error: the wrappers' launch path, one dict lookup and one
+    C call on the host."""
+    import torch
+    fn = function(f"repro_{name}")
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, stream)
+    raise_on_error(name, rc)
 
 
 def raise_on_error(name: str, rc: int) -> None:

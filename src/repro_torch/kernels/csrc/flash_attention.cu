@@ -36,8 +36,8 @@
 //    and at depth 144 of qwen3-14b's pool 4.9 MB in all, 1.5 us at HBM
 //    rate; a block per KV head, the earlier form, used 64 blocks of 132
 //    SMs and took 33 us.  Split-KV ("flash decoding"): the grid is
-//    (n_split, B * Hkv), a thread-block cluster of n_split blocks per
-//    (lane, KV head).  The host cannot know a lane's depth without a
+//    n_split x B * Hkv blocks on axis x, a thread-block cluster of the
+//    n_split consecutive blocks of each (lane, KV head).  The host cannot know a lane's depth without a
 //    sync (q_offset lies on the card), so each block finds from the
 //    offsets, mask and window which 32-key tiles its rows see and takes
 //    its share of them (the wrapper picks n_split, at most 8, so that the
@@ -117,12 +117,24 @@ struct Params {
   float scale;
   int n_split;                  // decode: blocks (one cluster) per (batch
                                 // row, KV head)
+  int per_bh;                   // consecutive blocks on grid x per (batch
+                                // row, KV head): n_split or the row tiles
 };
+
+// Grid x holds every block, per_bh consecutive ones for each (batch row,
+// KV head) (x reaches 2^31 - 1; y would stop B * Hkv at 65,535): this
+// block's (batch row, KV head) index and its place among their blocks.
+__device__ __forceinline__ int block_bh(const Params& p) {
+  return static_cast<int>(blockIdx.x) / p.per_bh;
+}
+__device__ __forceinline__ int block_sub(const Params& p) {
+  return static_cast<int>(blockIdx.x) % p.per_bh;
+}
 
 __device__ __forceinline__ int row_pos(const Params& p, int b, int m) {
   const int h = m / p.len_q;    // head within the group, query index
   const int i = m - h * p.len_q;
-  const int hh = blockIdx.y % p.hkv * p.n_rep + h;
+  const int hh = block_bh(p) % p.hkv * p.n_rep + h;
   const int off = p.q_offset ? p.q_offset[b * p.qo_b + hh * p.qo_h]
                              : p.len_kv - p.len_q;
   return off + i;
@@ -208,14 +220,14 @@ __device__ __forceinline__ const bf16* kv_base(const Params& p, const void* t,
 
 __device__ __forceinline__ bf16* out_row(const Params& p, int b, int m) {
   const int h = m / p.len_q;
-  const int hh = blockIdx.y % p.hkv * p.n_rep + h;
+  const int hh = block_bh(p) % p.hkv * p.n_rep + h;
   return static_cast<bf16*>(p.o) + b * p.so.b + hh * p.so.h +
          (m - h * p.len_q) * p.so.s;
 }
 
 __device__ __forceinline__ const bf16* q_row(const Params& p, int b, int m) {
   const int h = m / p.len_q;
-  const int hh = blockIdx.y % p.hkv * p.n_rep + h;
+  const int hh = block_bh(p) % p.hkv * p.n_rep + h;
   return static_cast<const bf16*>(p.q) + b * p.sq.b + hh * p.sq.h +
          (m - h * p.len_q) * p.sq.s;
 }
@@ -271,7 +283,7 @@ flash_decode_kernel(const Params p) {
   __shared__ float m_s[kDecRows], l_s[kDecRows], corr_s[kDecRows];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int bh = blockIdx.y, b = bh / p.hkv, kvh = bh % p.hkv;
+  const int bh = block_bh(p), b = bh / p.hkv, kvh = bh % p.hkv;
   const int rows = p.n_rep * p.len_q;
   const bf16* kb = kv_base(p, p.k, p.sk, b, kvh);
   const bf16* vb = kv_base(p, p.v, p.sv, b, kvh);
@@ -301,7 +313,7 @@ flash_decode_kernel(const Params p) {
   const int t_lo = span[0] / kDecBK;
   const int n_tiles = span[1] / kDecBK - t_lo + 1;
   const int n_work = min(p.n_split, n_tiles);
-  const int w = blockIdx.x;
+  const int w = block_sub(p);
   const bool works = w < n_work;           // else: only the merge below
   const int t0 = t_lo + w * n_tiles / n_work;
   const int t1 = works ? t_lo + (w + 1) * n_tiles / n_work - 1 : t0 - 1;
@@ -502,8 +514,8 @@ flash_prefill_kernel(const Params p) {
   __shared__ int span[3];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.y / p.hkv, kvh = blockIdx.y % p.hkv;
-  const int m0 = blockIdx.x * kPreRows;
+  const int b = block_bh(p) / p.hkv, kvh = block_bh(p) % p.hkv;
+  const int m0 = block_sub(p) * kPreRows;
   const int n_rows = p.n_rep * p.len_q;
   const bf16* kb = kv_base(p, p.k, p.sk, b, kvh);
   const bf16* vb = kv_base(p, p.v, p.sv, b, kvh);
@@ -719,9 +731,9 @@ flash_f32_kernel(const Params p) {
   __shared__ int span[3];
 
   const int tid = threadIdx.x;
-  const int b = blockIdx.y / p.hkv;
-  const int kvh = blockIdx.y % p.hkv;
-  const int m0 = blockIdx.x * kBQ;
+  const int b = block_bh(p) / p.hkv;
+  const int kvh = block_bh(p) % p.hkv;
+  const int m0 = block_sub(p) * kBQ;
   const int n_rows = p.n_rep * p.len_q;
   const int kvb = p.kv_index ? p.kv_index[b] : b;
   const float* kb = static_cast<const float*>(p.k) + kvb * p.sk.b +
@@ -835,6 +847,14 @@ bool rows_aligned(const Params& p, int d, long long elem) {
          reinterpret_cast<uintptr_t>(p.v) % 16 == 0;
 }
 
+// The grid: per_bh blocks for each of the batch x hkv (row, KV head)
+// pairs, all on axis x; 0 when they pass its 2^31 - 1.
+unsigned grid_x(Params& p, int per_bh, int batch) {
+  p.per_bh = per_bh;
+  const long long n = static_cast<long long>(per_bh) * batch * p.hkv;
+  return n <= INT_MAX ? static_cast<unsigned>(n) : 0u;
+}
+
 template <typename Kernel>
 int allow_smem(Kernel kernel, int bytes) {
   if (bytes <= 48 * 1024) return 0;
@@ -843,7 +863,7 @@ int allow_smem(Kernel kernel, int bytes) {
 }
 
 template <int D>
-int launch_f32(const Params& p, int batch, cudaStream_t stream) {
+int launch_f32(Params p, int batch, cudaStream_t stream) {
   const int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
   auto kernel = rows_aligned(p, D, 4) ? flash_f32_kernel<D, true>
                                       : flash_f32_kernel<D, false>;
@@ -851,20 +871,23 @@ int launch_f32(const Params& p, int batch, cudaStream_t stream) {
                          allow_smem(flash_f32_kernel<D, false>, smem);
   if (set) return set;
   const int n_rows = p.n_rep * p.len_q;
-  const dim3 grid((n_rows + kBQ - 1) / kBQ, batch * p.hkv);
+  const unsigned grid = grid_x(p, (n_rows + kBQ - 1) / kBQ, batch);
+  if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_bf16(const Params& p, int batch, cudaStream_t stream) {
+int launch_bf16(Params p, int batch, cudaStream_t stream) {
   const int n_rows = p.n_rep * p.len_q;
   if (n_rows <= kDecRows) {
     constexpr int smem = Dec<D>::SMEM;
     static const int set = allow_smem(flash_decode_kernel<D>, smem);
     if (set) return set;
+    const unsigned grid = grid_x(p, p.n_split, batch);
+    if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(p.n_split, batch * p.hkv);
+    cfg.gridDim = dim3(grid);
     cfg.blockDim = dim3(kThreads);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
@@ -881,7 +904,9 @@ int launch_bf16(const Params& p, int batch, cudaStream_t stream) {
     constexpr int smem = Pre<D>::SMEM;
     static const int set = allow_smem(flash_prefill_kernel<D>, smem);
     if (set) return set;
-    const dim3 grid((n_rows + kPreRows - 1) / kPreRows, batch * p.hkv);
+    const unsigned grid = grid_x(p, (n_rows + kPreRows - 1) / kPreRows,
+                                 batch);
+    if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
     flash_prefill_kernel<D><<<grid, kThreads, smem, stream>>>(p);
   }
   return static_cast<int>(cudaGetLastError());
@@ -920,7 +945,7 @@ extern "C" int repro_flash_attention(const char* packed) {
   const int batch = a.batch, hq = a.hq, hkv = a.hkv, len_q = a.len_q;
   const int len_kv = a.len_kv, d = a.d, dtype = a.dtype;
   if (batch < 1 || hkv < 1 || hq % hkv != 0 || len_q < 0 || len_kv < 1 ||
-      batch * hkv > 65535 || (dtype != 0 && dtype != 1)) {
+      (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (len_q == 0) return static_cast<int>(cudaSuccess);

@@ -46,9 +46,18 @@
 // other buffer; then the cluster synchronises.  No global scratch, no
 // padding.  The watermark is folded in the same launch (per-source maxima
 // in each block's shared memory, one atomic per source per warp, reduced
-// across the cluster by every block).  Past 65,536 lanes (up to kMaxLanes)
-// a multi-block bitonic path remains: tiles sorted in shared memory,
-// strides of a tile or more as passes over keys in global memory.
+// across the cluster by every block).  Past 65,536 lanes a multi-block
+// bitonic path remains: tiles sorted in shared memory, strides of a tile or
+// more as passes over keys in global memory, 64-bit positions, so it takes
+// any N up to 2^31 - 1 lanes (its key scratch: N rounded up to a power of
+// two).
+//
+// Sources: n_sources = 0 skips the fold (W = INT_MAX, the minimum over no
+// source): ScaleGate's push computes its watermark elsewhere and asks only
+// for the order.  Up to kMaxSources the per-source maxima live in shared
+// memory; past it in a global scratch of n_sources ints that the launch
+// initialises and folds into with global atomics, so every n_sources >= 0
+// is taken.
 
 #include <climits>
 #include <cstdint>
@@ -73,9 +82,7 @@ constexpr int kClusterSmem = 2 * kSlots * static_cast<int>(sizeof(Key));
 constexpr int kTileThreads = 1024;
 constexpr int kTile = 16384;        // lanes one block sorts in shared memory
 constexpr int kTileSmem = kTile * static_cast<int>(sizeof(Key));
-constexpr int kMaxLanes = 1 << 20;
-
-constexpr int kMaxSources = 1024;
+constexpr int kMaxSources = 1024;  // a shared-memory fold; past it, global
 constexpr int kMaxReports = 128;
 constexpr uint32_t kInfHigh = 0xffffffffu;     // pack's high word at INT_MAX
 constexpr Key kSentinel = ~0ull;               // after every real key
@@ -83,7 +90,8 @@ constexpr Key kSentinel = ~0ull;               // after every real key
 // The gate of one call: per-source fold (flat) or report min (stacked).
 struct Gate {
   const int32_t* src;       // flat: source id per lane; stacked: nullptr
-  int n_sources;
+  int n_sources;            // flat: 0 = no fold (W = INT_MAX)
+  int* fold;                // flat, n_sources > kMaxSources: [n_sources]
   const int32_t* reports;   // stacked: per-leaf reported frontiers
   int n_reports;
 };
@@ -320,7 +328,16 @@ scalegate_cluster_kernel(const int32_t* __restrict__ tau,
   const int base = rank * share;
   const int lanes = share_lanes(rank, share, n);
   const bool flat = g.reports == nullptr;
-  if (flat) {
+  const bool fold = flat && g.n_sources > 0;
+  const bool global_fold = g.n_sources > kMaxSources;
+  if (global_fold) {
+    // every block clears its share of the scratch before any block folds
+    for (int s = rank * kThreads + tid; s < g.n_sources;
+         s += n_blocks * kThreads) {
+      g.fold[s] = -1;
+    }
+    cluster.sync();
+  } else if (fold) {
     for (int s = tid; s < g.n_sources; s += kThreads) src_max[s] = -1;
     __syncthreads();
   }
@@ -345,15 +362,16 @@ scalegate_cluster_kernel(const int32_t* __restrict__ tau,
       } else {
         ++n_fin;
       }
-      if (flat && v) {
+      if (fold && v) {
         const int s = g.src[lane];
         src_of[x] = s < g.n_sources ? s : -1;
       }
     }
   }
-  if (flat) {
+  if (fold) {
     // A thread whose valid lanes share one source folds them first; a warp
     // with a thread of two sources folds lane by lane.
+    int* const maxima = global_fold ? g.fold : src_max;
     int s0 = -1, m0 = INT_MIN;
     bool mixed = false;
 #pragma unroll
@@ -367,11 +385,11 @@ scalegate_cluster_kernel(const int32_t* __restrict__ tau,
       }
     }
     if (!__any_sync(0xffffffffu, mixed)) {
-      fold_warp(src_max, s0, m0);
+      fold_warp(maxima, s0, m0);
     } else {
 #pragma unroll
       for (int x = 0; x < kItems; ++x) {
-        fold_warp(src_max, src_of[x], key_tau(k[x]));
+        fold_warp(maxima, src_of[x], key_tau(k[x]));
       }
     }
   }
@@ -438,7 +456,11 @@ scalegate_cluster_kernel(const int32_t* __restrict__ tau,
   if (tid < n_blocks) counts[tid] = *cluster.map_shared_rank(&finite_count,
                                                              tid);
   int m = INT_MAX;
-  if (flat) {
+  if (global_fold) {                       // the atomics are done (L2)
+    for (int s = tid; s < g.n_sources; s += kThreads) {
+      m = min(m, __ldcg(g.fold + s));
+    }
+  } else if (fold) {
     for (int s = tid; s < g.n_sources; s += kThreads) {
       int mx = -1;
       for (int b = 0; b < n_blocks; ++b) {
@@ -446,7 +468,7 @@ scalegate_cluster_kernel(const int32_t* __restrict__ tau,
       }
       m = min(m, mx);
     }
-  } else {
+  } else if (!flat) {
     for (int r = tid; r < g.n_reports; r += kThreads) m = min(m, g.reports[r]);
   }
   const int w = block_min(m, warp_mins);   // its barrier publishes counts
@@ -564,7 +586,20 @@ scalegate_watermark_kernel(const int32_t* __restrict__ tau,
     for (int r = tid; r < g.n_reports; r += blockDim.x) {
       m = min(m, g.reports[r]);
     }
-  } else {
+  } else if (g.n_sources > kMaxSources) {
+    for (int s = tid; s < g.n_sources; s += blockDim.x) g.fold[s] = -1;
+    __syncthreads();
+    for (int i = tid; i < n; i += blockDim.x) {
+      if (valid[i]) {
+        const int s = g.src[i];
+        if (s >= 0 && s < g.n_sources) atomicMax(&g.fold[s], tau[i]);
+      }
+    }
+    __syncthreads();
+    for (int s = tid; s < g.n_sources; s += blockDim.x) {
+      m = min(m, __ldcg(g.fold + s));
+    }
+  } else if (g.n_sources > 0) {
     for (int s = tid; s < g.n_sources; s += blockDim.x) src_max[s] = -1;
     __syncthreads();
     for (int i = tid; i < n; i += blockDim.x) {
@@ -592,8 +627,8 @@ scalegate_watermark_kernel(const int32_t* __restrict__ tau,
 }
 
 // Pair t of a stage with stride j: the lower lane i (bit j clear) and its
-// partner i + j.
-__device__ __forceinline__ int pair_lo(int t, int j) {
+// partner i + j.  Positions are 64-bit: the padded length reaches 2^31.
+__device__ __forceinline__ long long pair_lo(long long t, long long j) {
   return ((t & ~(j - 1)) << 1) | (t & (j - 1));
 }
 
@@ -601,12 +636,14 @@ __device__ __forceinline__ int pair_lo(int t, int j) {
 // over one tile of keys in shared memory whose first lane has global index
 // base.  A block of size k sorts ascending iff bit k of the global index
 // is 0, so tiles sorted here merge across tiles later.
-__device__ void sort_tile(Key* keys, int base, int k_lo, int k_hi) {
+__device__ void sort_tile(Key* keys, long long base, long long k_lo,
+                          long long k_hi) {
   constexpr int half = kTile >> 1;
-  for (int k = k_lo; k <= k_hi; k <<= 1) {
-    for (int j = min(k, kTile) >> 1; j > 0; j >>= 1) {
+  for (long long k = k_lo; k <= k_hi; k <<= 1) {
+    for (int j = static_cast<int>(min(k, static_cast<long long>(kTile))) >> 1;
+         j > 0; j >>= 1) {
       for (int t = threadIdx.x; t < half; t += blockDim.x) {
-        const int i = pair_lo(t, j);
+        const int i = static_cast<int>(pair_lo(t, j));
         const Key a = keys[i];
         const Key b = keys[i + j];
         const bool up = ((base + i) & k) == 0;
@@ -627,11 +664,11 @@ scalegate_tile_sort_kernel(const int32_t* __restrict__ tau,
                            const uint8_t* __restrict__ valid, int n,
                            Key* __restrict__ keys_g) {
   extern __shared__ Key keys[];
-  const int base = blockIdx.x * kTile;
+  const long long base = static_cast<long long>(blockIdx.x) * kTile;
   for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
-    const int lane = base + i;
-    keys[i] = lane < n ? pack(tau[lane], valid[lane], lane)
-                       : pack(0, false, lane);
+    const long long lane = base + i;
+    keys[i] = lane < n ? pack(tau[lane], valid[lane], static_cast<int>(lane))
+                       : pack(0, false, static_cast<int>(lane));
   }
   __syncthreads();
   sort_tile(keys, base, 2, kTile);
@@ -641,11 +678,12 @@ scalegate_tile_sort_kernel(const int32_t* __restrict__ tau,
 }
 
 // One stage (level k, stride j >= kTile) in global memory, a thread per pair.
-__global__ void scalegate_pass_kernel(Key* __restrict__ keys, int n_pad,
-                                      int k, int j) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void scalegate_pass_kernel(Key* __restrict__ keys, long long n_pad,
+                                      long long k, long long j) {
+  const long long t =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= (n_pad >> 1)) return;
-  const int i = pair_lo(t, j);
+  const long long i = pair_lo(t, j);
   const Key a = keys[i];
   const Key b = keys[i + j];
   const bool up = (i & k) == 0;
@@ -659,14 +697,14 @@ __global__ void scalegate_pass_kernel(Key* __restrict__ keys, int n_pad,
 // level (k == n_pad) emits the first n sorted positions instead of storing
 // the keys back.
 __global__ void __launch_bounds__(kTileThreads)
-scalegate_tile_merge_kernel(Key* __restrict__ keys_g, int n_pad, int k,
-                            const int32_t* __restrict__ tau,
+scalegate_tile_merge_kernel(Key* __restrict__ keys_g, long long n_pad,
+                            long long k, const int32_t* __restrict__ tau,
                             const uint8_t* __restrict__ valid, int n,
                             const int32_t* __restrict__ wmark,
                             int32_t* __restrict__ order,
                             int32_t* __restrict__ ready) {
   extern __shared__ Key keys[];
-  const int base = blockIdx.x * kTile;
+  const long long base = static_cast<long long>(blockIdx.x) * kTile;
   for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
     keys[i] = keys_g[base + i];
   }
@@ -762,18 +800,19 @@ cudaError_t launch_multi_block(const int32_t* tau, const uint8_t* valid,
   if (n <= kTile || keys_g == nullptr) return cudaErrorInvalidValue;
   const cudaError_t err = set_attributes();
   if (err != cudaSuccess) return err;
-  int n_pad = kTile;
+  long long n_pad = kTile;
   while (n_pad < n) n_pad <<= 1;
-  const int n_tiles = n_pad / kTile;
+  const int n_tiles = static_cast<int>(n_pad / kTile);
   scalegate_watermark_kernel<<<1, kTileThreads, 0, stream>>>(tau, valid, n,
                                                               g, wmark);
   scalegate_tile_sort_kernel<<<n_tiles, kTileThreads, kTileSmem, stream>>>(
       tau, valid, n, keys_g);
-  for (int k = kTile << 1; k <= n_pad; k <<= 1) {
-    for (int j = k >> 1; j >= kTile; j >>= 1) {
-      const int pairs = n_pad >> 1;
-      scalegate_pass_kernel<<<(pairs + kTileThreads - 1) / kTileThreads,
-                              kTileThreads, 0, stream>>>(keys_g, n_pad, k, j);
+  for (long long k = kTile << 1; k <= n_pad; k <<= 1) {
+    for (long long j = k >> 1; j >= kTile; j >>= 1) {
+      const long long pairs = n_pad >> 1;
+      scalegate_pass_kernel<<<
+          static_cast<unsigned>((pairs + kTileThreads - 1) / kTileThreads),
+          kTileThreads, 0, stream>>>(keys_g, n_pad, k, j);
     }
     scalegate_tile_merge_kernel<<<n_tiles, kTileThreads, kTileSmem, stream>>>(
         keys_g, n_pad, k, tau, valid, n, wmark, order, ready);
@@ -792,9 +831,7 @@ int launch(const void* tau, const void* valid, int n, int cluster,
   auto* r = static_cast<int32_t*>(ready);
   auto* w = static_cast<int32_t*>(wmark);
   auto* s = static_cast<cudaStream_t>(stream);
-  if (n < 1 || n > kMaxLanes || cluster < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (n < 1 || cluster < 0) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
       cluster > 0
           ? launch_cluster(t, v, n, cluster, g, o, r, w, s)
@@ -804,14 +841,17 @@ int launch(const void* tau, const void* valid, int n, int cluster,
 
 }  // namespace
 
+// fold: n_sources ints of global scratch, needed past kMaxSources sources.
 extern "C" int repro_scalegate_merge(const void* tau, const void* src,
                                      const void* valid, int n, int n_sources,
-                                     int cluster, void* keys, void* order,
-                                     void* ready, void* wmark, void* stream) {
-  if (n_sources < 1 || n_sources > kMaxSources) {
+                                     void* fold, int cluster, void* keys,
+                                     void* order, void* ready, void* wmark,
+                                     void* stream) {
+  if (n_sources < 0 || (n_sources > kMaxSources && fold == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Gate g{static_cast<const int32_t*>(src), n_sources, nullptr, 0};
+  const Gate g{static_cast<const int32_t*>(src), n_sources,
+               static_cast<int*>(fold), nullptr, 0};
   return launch(tau, valid, n, cluster, g, keys, order, ready, wmark, stream);
 }
 
@@ -825,7 +865,8 @@ extern "C" int repro_scalegate_merge_stacked(const void* tau,
   if (n_reports < 1 || n_reports > kMaxReports) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Gate g{nullptr, 0, static_cast<const int32_t*>(reports), n_reports};
+  const Gate g{nullptr, 0, nullptr, static_cast<const int32_t*>(reports),
+               n_reports};
   return launch(tau, valid, n, cluster, g, keys, order, ready, wmark, stream);
 }
 

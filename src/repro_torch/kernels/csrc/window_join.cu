@@ -24,6 +24,12 @@
 // for live, fresh, opposite-stream pairs.  comps is reduced in the warp,
 // then across the block, then one 64-bit atomicAdd per block.  Incoming
 // lanes past B stage INF_TIME and are masked out of counts and comps.
+// Any n_attrs <= P is taken, as the reference kernel unrolls any: the
+// first kMaxAttrs payload columns are unrolled in registers (Q3 and Q6
+// use 2); a second body reads the columns past them from global memory
+// (the lane's own incoming row, the stored row broadcast across the warp).
+// Every block sits on grid axis x (its 2^31 - 1 limit; y would stop the
+// key tiles at 65,535), incoming tiles fastest.
 
 #include <climits>
 #include <cstdint>
@@ -36,6 +42,7 @@ constexpr int kTileB = 32;   // lanes of a warp: one incoming tuple each
 constexpr int kTileK = 8;    // warps of a block: one key row each
 constexpr int kMaxAttrs = 8;
 
+template <bool kWide>       // n_attrs > kMaxAttrs: the columns past them
 __global__ void __launch_bounds__(kTileB * kTileK)
 window_join_kernel(const int32_t* __restrict__ new_tau,
                    const int32_t* __restrict__ new_src,
@@ -43,7 +50,8 @@ window_join_kernel(const int32_t* __restrict__ new_tau,
                    const int32_t* __restrict__ st_tau,
                    const int32_t* __restrict__ st_src,
                    const float* __restrict__ st_pay, int k_total, int r_total,
-                   int ws, float band, int n_attrs, int32_t* __restrict__ counts,
+                   int ws, float band, int n_attrs, int b_tiles,
+                   int32_t* __restrict__ counts,
                    unsigned long long* __restrict__ comps) {
   __shared__ int s_tau[kTileB];
   __shared__ int s_src[kTileB];
@@ -52,8 +60,11 @@ window_join_kernel(const int32_t* __restrict__ new_tau,
 
   const int lane = threadIdx.x;
   const int warp = threadIdx.y;
-  const int b = blockIdx.x * kTileB + lane;
-  const int k = blockIdx.y * kTileK + warp;
+  const int b = static_cast<int>(blockIdx.x % b_tiles) * kTileB + lane;
+  const int k = static_cast<int>(blockIdx.x / b_tiles) * kTileK + warp;
+  // the lane's own incoming row (clamped: lanes past B count nothing)
+  const float* const my_pay =
+      new_pay + static_cast<long long>(min(b, b_total - 1)) * p;
 
   if (warp == 0) {
     const bool in = b < b_total;
@@ -91,6 +102,11 @@ window_join_kernel(const int32_t* __restrict__ new_tau,
         for (int a = 0; a < kMaxAttrs; ++a) {
           if (a < n_attrs) ok = ok && fabsf(pay_new[a] - sp[a]) <= band;
         }
+        if (kWide) {
+          for (int a = kMaxAttrs; a < n_attrs && ok; ++a) {
+            ok = fabsf(my_pay[a] - sp[a]) <= band;
+          }
+        }
         count += ok ? 1 : 0;
       }
     }
@@ -119,8 +135,10 @@ extern "C" int repro_window_join(const void* new_tau, const void* new_src,
                                  const void* st_pay, int k, int r, int ws,
                                  float band, int n_attrs, void* counts,
                                  void* comps, void* stream) {
-  if (b < 0 || k < 0 || r < 0 || p < 1 || n_attrs < 0 ||
-      n_attrs > kMaxAttrs || n_attrs > p) {
+  const long long b_tiles = (b + kTileB - 1) / kTileB;
+  const long long k_tiles = (k + kTileK - 1) / kTileK;
+  if (b < 0 || k < 0 || r < 0 || p < 1 || n_attrs < 0 || n_attrs > p ||
+      b_tiles * k_tiles > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -128,13 +146,15 @@ extern "C" int repro_window_join(const void* new_tau, const void* new_src,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (b == 0 || k == 0) return static_cast<int>(cudaGetLastError());
   const dim3 block(kTileB, kTileK);
-  const dim3 grid((b + kTileB - 1) / kTileB, (k + kTileK - 1) / kTileK);
-  window_join_kernel<<<grid, block, 0, st>>>(
+  const unsigned grid = static_cast<unsigned>(b_tiles * k_tiles);
+  auto kernel = n_attrs > kMaxAttrs ? window_join_kernel<true>
+                                    : window_join_kernel<false>;
+  kernel<<<grid, block, 0, st>>>(
       static_cast<const int32_t*>(new_tau), static_cast<const int32_t*>(new_src),
       static_cast<const float*>(new_pay), b, p,
       static_cast<const int32_t*>(st_tau), static_cast<const int32_t*>(st_src),
       static_cast<const float*>(st_pay), k, r, ws, band, n_attrs,
-      static_cast<int32_t*>(counts),
+      static_cast<int>(b_tiles), static_cast<int32_t*>(counts),
       static_cast<unsigned long long*>(comps));
   return static_cast<int>(cudaGetLastError());
 }

@@ -98,7 +98,9 @@ def validate(q, k, v, *, causal: bool = True, window=None, n_rep: int = 1,
                          "in D")
     if window is not None and window < 1:
         raise ValueError("window must be None or >= 1")
-    if b * hkv > 65535 or skv < 1:
+    # every block on grid axis x: at most 2^31 - 1 of them, 16 query rows
+    # (or one split) a block at the finest
+    if skv < 1 or b * hkv * max(MAX_SPLIT, -(-n_rep * sq // 16)) >= 2 ** 31:
         raise ValueError("flash_attention: grid or sequence out of range")
     ptrs = q.data_ptr(), k.data_ptr(), v.data_ptr()
     if dtype == torch.bfloat16 and (

@@ -7,10 +7,14 @@ starts from ``s0`` (``f32[BH, Dk, Dv]``; left out, zeros, the TPU kernel's
 start) and hands back its final state, which the RWKV time-mix carries
 from prefill into every decode tick.  ``u`` is ``[BH, Dk]`` as in the
 reference or one row per head (``[H, Dk]``, broadcast over the batch).
-The reference's ``chunk`` is a Pallas tiling knob with no counterpart.
+The reference's ``chunk`` is a Pallas tiling knob; here ``chunk`` picks
+the chunk length C of the kernel's chunked body (``CHUNK`` by default;
+16 at Dk 64 for the card's sweep), which runs every call of T >= C at Dk
+32, 64 and 128; shorter calls (decode) and smaller keys take its
+sequential body.  The domain is w in [0, 1].
 
 Tolerance between the two realizations: 1e-4, the reference's (the sums
-over Dk run in another order).
+over Dk and the chunk's steps run in another order).
 """
 
 from __future__ import annotations
@@ -18,9 +22,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build, dispatch
-from repro_torch.kernels.linear_scan.ref import linear_scan_ref
+from repro_torch.kernels.linear_scan.ref import CHUNK, linear_scan_ref
 
 KEY_DIMS = (8, 16, 32, 64, 128)
+SWEEP_CHUNKS = (CHUNK, 16)        # chunk lengths built at Dk 64
 
 
 def _ptr(t) -> int:
@@ -49,19 +54,19 @@ def validate(r, k, v, w, u=None, s0=None):
     return u_rows
 
 
-def _cuda(r, k, v, w, u=None, s0=None):
+def _cuda(r, k, v, w, u=None, s0=None, *, chunk: int = CHUNK):
     u_rows = validate(r, k, v, w, u, s0)
     bh, t, dk = r.shape
     dv = v.shape[-1]
+    if chunk != CHUNK and (dk != 64 or chunk not in SWEEP_CHUNKS):
+        raise ValueError(f"chunk {chunk} is built only at Dk 64, one of "
+                         f"{SWEEP_CHUNKS}")
     dev, f32 = r.device, torch.float32
     o = torch.empty((bh, t, dv), dtype=f32, device=dev)
     s_out = torch.empty((bh, dk, dv), dtype=f32, device=dev)
-    with torch.cuda.device(dev):
-        rc = build.library().repro_linear_scan(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), _ptr(u),
-            u_rows, _ptr(s0), o.data_ptr(), s_out.data_ptr(), bh, t, dk, dv,
-            torch.cuda.current_stream(dev).cuda_stream)
-    build.raise_on_error("linear_scan", rc)
+    build.launch("linear_scan", dev, r.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), w.data_ptr(), _ptr(u), u_rows, _ptr(s0),
+                 o.data_ptr(), s_out.data_ptr(), bh, t, dk, dv, chunk)
     return o, s_out
 
 

@@ -7,7 +7,11 @@ Held against ``src/repro/kernels/scalegate_merge/ops.py``: the flat merge
 to a power of two of at least 128 lanes in Python, the CUDA launchers take
 N as it is; the wrappers validate, pick the launch from N alone
 (``plan``), allocate the outputs (and, past the cluster path's capacity,
-the multi-block path's key scratch) and launch.
+the multi-block path's key scratch) and launch.  The flat merge takes any
+``n_sources >= 0``: 0 asks for the order alone (no fold, W = INT_MAX, the
+minimum over no source), and past ``MAX_SHARED_SOURCES`` the per-source
+maxima fold into a global scratch the wrapper allocates.  Both take any
+N from 1 to ``MAX_LANES``.
 """
 
 from __future__ import annotations
@@ -24,8 +28,9 @@ SHARE = 4096             # lanes one cluster block holds (512 threads x 8)
 MAX_CLUSTER = 16         # blocks of one cluster (non-portable above 8)
 CLUSTER_LANES = SHARE * MAX_CLUSTER   # the cluster path's capacity
 CLUSTER_SMEM = 2 * (SHARE + SHARE // 16) * 8  # two padded key buffers (68 KB)
-MAX_LANES = 1 << 20      # the multi-block path's key scratch: 8 MB
+MAX_LANES = 2 ** 31 - 1  # int32 lane indices (key scratch up to 16 GB)
 MAX_REPORTS = 128        # leaf reports of one stacked call
+MAX_SHARED_SOURCES = 1024  # the fold in shared memory; past it, global
 
 
 class Plan(NamedTuple):
@@ -43,8 +48,7 @@ def plan(n: int, cluster: Optional[int] = None) -> Plan:
     ``SHARE`` lanes a block, up to ``CLUSTER_LANES``; past it the
     multi-block path.  ``cluster`` forces the cluster size (the card's
     sweep over it)."""
-    if not 1 <= n <= MAX_LANES:
-        raise ValueError(f"a merge takes 1..{MAX_LANES} lanes, got {n}")
+    _check_lanes("a merge", n)
     if cluster is None:
         if n > CLUSTER_LANES:
             return Plan(0, 0, 1 << (n - 1).bit_length())
@@ -68,19 +72,6 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(name: str, dev, *args) -> None:
-    """Call ``repro_<name>`` on ``dev``'s current stream, switching device
-    only when ``dev`` is not current, and raise on a launch error."""
-    fn = build.function(f"repro_{name}")
-    stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    if dev.index == torch.cuda.current_device():
-        rc = fn(*args, stream)
-    else:
-        with torch.cuda.device(dev):
-            rc = fn(*args, stream)
-    build.raise_on_error(name, rc)
-
-
 def _check_lanes(name: str, n: int) -> None:
     if not 1 <= n <= MAX_LANES:
         raise ValueError(f"{name} takes 1..{MAX_LANES} lanes, got {n}")
@@ -93,13 +84,16 @@ def _cuda(tau, src, valid, *, n_sources: int, cluster: Optional[int] = None):
     dispatch.check("src", src, torch.int32, (n,), dev)
     dispatch.check("valid", valid, torch.bool, (n,), dev)
     _check_lanes("scalegate_merge", n)
-    if not 1 <= n_sources <= 1024:
-        raise ValueError(f"n_sources must be in 1..1024, got {n_sources}")
+    if n_sources < 0:
+        raise ValueError(f"n_sources must be >= 0, got {n_sources}")
     p = plan(n, cluster)
     keys, order, ready, wmark = _outputs((n,), p, dev)
-    _launch("scalegate_merge", dev, tau.data_ptr(), src.data_ptr(),
-            valid.data_ptr(), n, n_sources, p.cluster, _ptr(keys),
-            order.data_ptr(), ready.data_ptr(), wmark.data_ptr())
+    fold = (torch.empty((n_sources,), dtype=torch.int32, device=dev)
+            if n_sources > MAX_SHARED_SOURCES else None)
+    build.launch("scalegate_merge", dev, tau.data_ptr(), src.data_ptr(),
+                 valid.data_ptr(), n, n_sources, _ptr(fold), p.cluster,
+                 _ptr(keys), order.data_ptr(), ready.data_ptr(),
+                 wmark.data_ptr())
     return order, ready, wmark
 
 
@@ -123,9 +117,10 @@ def _cuda_stacked(tau2, src2, valid2, reports, *,
     _check_lanes("scalegate_merge_stacked", n)
     p = plan(n, cluster)
     keys, order, ready, wmark = _outputs(shape, p, dev)
-    _launch("scalegate_merge_stacked", dev, tau2.data_ptr(),
-            valid2.data_ptr(), n, reports.data_ptr(), n_reports, p.cluster,
-            _ptr(keys), order.data_ptr(), ready.data_ptr(), wmark.data_ptr())
+    build.launch("scalegate_merge_stacked", dev, tau2.data_ptr(),
+                 valid2.data_ptr(), n, reports.data_ptr(), n_reports,
+                 p.cluster, _ptr(keys), order.data_ptr(), ready.data_ptr(),
+                 wmark.data_ptr())
     return order, ready, wmark
 
 

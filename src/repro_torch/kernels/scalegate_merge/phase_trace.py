@@ -124,7 +124,7 @@ def main(argv) -> int:
                 def call():
                     rc = (lib.repro_scalegate_merge(
                         tau.data_ptr(), src.data_ptr(), valid.data_ptr(), n,
-                        1, c, None, order.data_ptr(), ready.data_ptr(),
+                        1, None, c, None, order.data_ptr(), ready.data_ptr(),
                         wmark.data_ptr(), stream) if flat else
                         lib.repro_scalegate_merge_stacked(
                             tau.data_ptr(), valid.data_ptr(), n,

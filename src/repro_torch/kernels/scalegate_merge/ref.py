@@ -23,11 +23,13 @@ def _sort_ready(tau, valid, w):
 
 
 def scalegate_merge_ref(tau, src, valid, *, n_sources: int):
-    """-> (order i32[N], ready i32[N], watermark i32[1])."""
+    """-> (order i32[N], ready i32[N], watermark i32[1]); ``n_sources`` 0
+    folds nothing and gates at INT_MAX, the minimum over no source."""
     s_ids = torch.arange(n_sources, dtype=src.dtype, device=src.device)
     onehot = (src[None, :] == s_ids[:, None]) & valid[None]
     per_src_max = torch.where(onehot, tau[None, :], -1).amax(dim=1)
-    w = per_src_max.min()
+    w = (per_src_max.min() if n_sources else
+         torch.tensor(INF_TIME, dtype=torch.int32, device=tau.device))
     order, ready = _sort_ready(tau, valid, w)
     return order, ready, w.reshape(1)
 

@@ -30,12 +30,8 @@ def _cuda(keys, slots, vals, acc):
     dispatch.check("acc", acc, torch.float32, (k, s, w), dev)
     if n * w >= 2 ** 31 or k * s * w >= 2 ** 31:
         raise ValueError("segment_aggregate indexes with 32-bit counts")
-    with torch.cuda.device(dev):
-        rc = build.library().repro_segment_aggregate(
-            keys.data_ptr(), slots.data_ptr(), vals.data_ptr(),
-            acc.data_ptr(), n, w, k, s,
-            torch.cuda.current_stream(dev).cuda_stream)
-    build.raise_on_error("segment_aggregate", rc)
+    build.launch("segment_aggregate", dev, keys.data_ptr(), slots.data_ptr(),
+                 vals.data_ptr(), acc.data_ptr(), n, w, k, s)
     return acc
 
 

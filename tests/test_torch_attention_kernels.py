@@ -26,6 +26,9 @@ from repro_torch.kernels.flash_attention.ops import flash_attention_op
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.linear_scan import ops as scan_ops
 from repro_torch.kernels.linear_scan.ops import linear_scan_op
+from repro_torch.kernels.linear_scan.ref import (CHUNK,
+                                                 linear_scan_chunked_ref,
+                                                 linear_scan_ref)
 
 T = torch.from_numpy
 
@@ -83,6 +86,45 @@ def test_flash_attention_plain_matches_pallas_interpret():
                    blk_k=32, backend="pallas-interpret")
     got = flash_attention_op(T(q), T(k), T(v), window=24, n_rep=2)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("variant", ["s0_u_per_head", "u_per_row", "no_u"])
+@pytest.mark.parametrize("t", [1, CHUNK - 1, CHUNK, CHUNK + 1, 3 * CHUNK + 5])
+@pytest.mark.parametrize("decay", ["uniform", "mixed"])
+def test_linear_scan_chunked_decomposition(decay, t, variant):
+    """The CUDA kernel's chunked body, rendered in plain PyTorch with its
+    chunk length, equals the JAX reference (``linear_scan_ref_op``, which
+    starts from zeros) and the port's sequential plain version within
+    1e-4: decays uniform on (0, 1] or mixed from {0, 1e-30, 1e-6, 0.5, 1}
+    (zeros forget the state exactly, 1e-30 underflows in two steps), T
+    short of, at and past the chunk and ragged, a carried s0, u per head
+    or per row, and no u.  Nothing is NaN."""
+    rng = np.random.default_rng(t * 7 + len(decay) + len(variant))
+    b, h, dk, dv = 2, 3, 8, 12
+    bh = b * h
+    r, k, v, _, _ = _scan_inputs(bh, t, dk, dv, False, t)
+    if decay == "uniform":
+        w = (1.0 - rng.random((bh, t, dk))).astype(np.float32)
+    else:
+        w = rng.choice(np.array([0, 1e-30, 1e-6, 0.5, 1], np.float32),
+                       (bh, t, dk))
+    u = s0 = None
+    if variant == "s0_u_per_head":
+        u = rng.normal(0, 1, (h, dk)).astype(np.float32)
+        s0 = rng.normal(0, 1, (bh, dk, dv)).astype(np.float32)
+    elif variant == "u_per_row":
+        u = rng.normal(0, 1, (bh, dk)).astype(np.float32)
+    opt = lambda x: None if x is None else T(x)
+    got, s_got = linear_scan_chunked_ref(T(r), T(k), T(v), T(w), opt(u),
+                                         opt(s0))
+    want, s_want = linear_scan_ref(T(r), T(k), T(v), T(w), opt(u), opt(s0))
+    assert torch.isfinite(got).all() and torch.isfinite(s_got).all()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4)
+    np.testing.assert_allclose(s_got.numpy(), s_want.numpy(), atol=1e-4)
+    if s0 is None:
+        u_rows = None if u is None else np.tile(u, (bh // u.shape[0], 1))
+        ref = linear_scan_ref_op(r, k, v, w, u_rows)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4)
 
 
 def test_linear_scan_plain_matches_pallas_interpret():
@@ -217,7 +259,7 @@ def test_flash_attention_wrapper_refuses_what_the_kernel_cannot_take(case):
         flash_ops._cuda(q, k, v, **kw)
 
 
-@pytest.mark.parametrize("case", ["dk", "u_rows", "s0", "dtype"])
+@pytest.mark.parametrize("case", ["dk", "u_rows", "s0", "dtype", "chunk"])
 def test_linear_scan_wrapper_refuses_what_the_kernel_cannot_take(case):
     x = torch.zeros(6, 4, 8)
     args = dict(r=x, k=x, v=torch.zeros(6, 4, 5), w=x, u=None, s0=None)
@@ -230,6 +272,8 @@ def test_linear_scan_wrapper_refuses_what_the_kernel_cannot_take(case):
         args["s0"] = torch.zeros(6, 5, 8)
     elif case == "dtype":
         args["r"] = x.double()
+    elif case == "chunk":                  # sweep lengths only at Dk 64
+        args["chunk"] = 16
     with pytest.raises((ValueError, TypeError)):
         scan_ops._cuda(**args)
 
@@ -256,6 +300,22 @@ def test_flash_attention_wrapper_takes_every_dense_configs_heads(arch):
         pre = torch.zeros(1, hq, 8, d, dtype=dt)
         kv = torch.zeros(1, hkv, 8, d, dtype=dt)
         flash_ops.validate(pre, kv, kv, window=window, n_rep=hq // hkv)
+
+
+def test_flash_attention_wrapper_takes_a_grid_past_65535_kv_rows():
+    """8,193 decode lanes at 8 KV heads (B x H_kv = 65,544, past grid
+    axis y's limit, which bound the kernel before) pass the CUDA
+    wrapper's checks (on CPU tensors, before any launch), in bfloat16 and
+    float32; a grid past axis x's 2^31 - 1 blocks is refused."""
+    for dt in (torch.bfloat16, torch.float32):
+        q = torch.zeros(8193, 40, 1, 16, dtype=dt)
+        kv = torch.zeros(8193, 8, 3, 16, dtype=dt)
+        flash_ops.validate(q, kv, kv, n_rep=5,
+                           q_offset=torch.full((8193,), 2, dtype=torch.int32))
+    q = torch.zeros(1, 1, 1, 16).expand(2 ** 28, 1, 1, 16)
+    kv = torch.zeros(1, 1, 1, 16).expand(2 ** 28, 1, 1, 16)
+    with pytest.raises(ValueError):
+        flash_ops.validate(q, kv, kv)
 
 
 def _split_kv_model(q, k, v, pos, *, causal, window, chunk):

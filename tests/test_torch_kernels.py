@@ -17,12 +17,15 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.kernels.scalegate_merge.ops import scalegate_merge_op as j_merge
+from repro.kernels.scalegate_merge.ref import \
+    scalegate_merge_ref as j_merge_ref
 from repro.kernels.segment_aggregate.ops import segment_aggregate_op as j_agg
 from repro.kernels.window_join.ops import window_join_op as j_join
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.scalegate_merge import ops as merge_ops
 from repro_torch.kernels.scalegate_merge.ops import scalegate_merge_op
 from repro_torch.kernels.segment_aggregate.ops import segment_aggregate_op
+from repro_torch.kernels.window_join import ops as window_join_ops
 from repro_torch.kernels.window_join.ops import window_join_op
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -83,12 +86,14 @@ def test_scalegate_merge_plain_equals_pallas(name):
 
 @pytest.mark.parametrize("n", [1, 2, 127, 4097, 12288, 20480, 22536,
                                merge_ops.CLUSTER_LANES,
-                               merge_ops.CLUSTER_LANES + 1, 2 ** 20])
+                               merge_ops.CLUSTER_LANES + 1, 2 ** 20,
+                               2 ** 20 + 1, 2 ** 24])
 def test_scalegate_merge_launch_plan(n):
     """The launch is a function of N alone: up to the cluster path's
     capacity one cluster of at most 16 blocks whose shares cover every
-    lane once and fit a block's key buffers; past it the multi-block
-    path over a power-of-two key scratch."""
+    lane once and fit a block's key buffers; past it, for any N that
+    int32 lane indices reach, the multi-block path over a power-of-two
+    key scratch."""
     p = merge_ops.plan(n)
     assert p == merge_ops.plan(n)
     if n > merge_ops.CLUSTER_LANES:
@@ -107,11 +112,38 @@ def test_scalegate_merge_launch_plan(n):
     assert p.cluster == 1 or -(-n // (p.cluster // 2)) > merge_ops.SHARE
 
 
-@pytest.mark.parametrize("n,cluster", [(0, None), (2 ** 20 + 1, None),
+@pytest.mark.parametrize("n,cluster", [(0, None), (2 ** 31, None),
                                        (22536, 5), (100, 17), (100, 0)])
 def test_scalegate_merge_launch_plan_refuses(n, cluster):
     with pytest.raises(ValueError):
         merge_ops.plan(n, cluster)
+
+
+@pytest.mark.parametrize("ns", [0, 1, 3, 1025, 2000])
+def test_scalegate_merge_plain_takes_any_source_count(ns):
+    """Any ``n_sources >= 0``: the order never depends on it; 0 folds
+    nothing and gates at INT_MAX (every valid lane ready), which is what
+    ``merge_order`` asks the card for; past the kernel's shared-memory
+    fold (1024) the watermark still equals the reference's fold."""
+    rng = np.random.default_rng(ns)
+    n = 3000
+    tau = rng.integers(0, 500, n).astype(np.int32)
+    src = rng.integers(0, max(ns, 1), n).astype(np.int32)
+    valid = rng.random(n) < 0.9
+    got = scalegate_merge_op(*(torch.from_numpy(a) for a in (tau, src, valid)),
+                             n_sources=ns)
+    if ns:
+        want = j_merge_ref(tau, src, valid, n_sources=ns)
+        for j, p in zip(want, got):
+            np.testing.assert_array_equal(np.asarray(j), p.numpy())
+    else:
+        order = np.argsort(np.where(valid, tau, INF), kind="stable")
+        np.testing.assert_array_equal(got[0].numpy(), order)
+        np.testing.assert_array_equal(got[1].numpy(), valid[order])
+        assert int(got[2]) == INF
+    with pytest.raises(ValueError):       # refused before any launch
+        merge_ops._cuda(*(torch.from_numpy(a) for a in (tau, src, valid)),
+                        n_sources=-1)
 
 
 def test_scalegate_phase_trace_stamps_every_phase():
@@ -169,6 +201,35 @@ def test_window_join_plain_equals_pallas(b):
     np.testing.assert_array_equal(np.asarray(jc), pc.numpy())
     assert int(jn) == int(pn) > 0
     assert not pc.numpy()[-1].any()
+
+
+def test_window_join_plain_equals_pallas_on_every_attribute():
+    """n_attrs = P = 12, past the kernel's 8 unrolled columns, exactly as
+    the reference kernel unrolls it; the CUDA wrapper's checks (here on
+    CPU tensors, before any launch) take it and refuse n_attrs > P."""
+    rng = np.random.default_rng(12)
+    b, k, r, p = 21, 16, 5, 12
+    nt = np.sort(rng.integers(100, 300, b)).astype(np.int32)
+    ns = rng.integers(0, 2, b).astype(np.int32)
+    npay = rng.uniform(0, 40, (b, p)).astype(np.float32)
+    st = rng.integers(0, 280, (k, r)).astype(np.int32)
+    st[rng.random((k, r)) < 0.3] = -1
+    ss = rng.integers(0, 2, (k, r)).astype(np.int32)
+    sp = rng.uniform(0, 40, (k, r, p)).astype(np.float32)
+    # a band that only the later columns narrow: each column alone passes
+    # many pairs, all twelve fewer
+    kw = dict(ws=60, band=25.0)
+    jc, jn = j_join(nt, ns, npay, st, ss, sp, n_attrs=p, tile_k=16,
+                    backend="pallas-interpret", **kw)
+    args = [torch.from_numpy(a) for a in (nt, ns, npay, st, ss, sp)]
+    pc, pn = window_join_op(*args, n_attrs=p, **kw)
+    np.testing.assert_array_equal(np.asarray(jc), pc.numpy())
+    assert int(jn) == int(pn) > 0
+    eight, _ = window_join_op(*args, n_attrs=8, **kw)
+    assert 0 < int(pc.sum()) < int(eight.sum())
+    window_join_ops.validate(*args, n_attrs=p)
+    with pytest.raises(ValueError):
+        window_join_ops.validate(*args, n_attrs=p + 1)
 
 
 def test_registry_sends_cpu_tensors_to_the_plain_version():
