@@ -20,8 +20,12 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
                  on every cluster-size boundary, past 2^20 lanes, at 0 and
                  2,000 sources, with a sweep over the cluster size, and
                  ScaleGate ``push`` at 2,000 sources and 2^20 + 1 lanes equal
-                 to its CPU run; window_join at n_attrs 12 and 524,289 key
-                 rows; flash_attention at 65,544 (lane, KV head) pairs; the
+                 to its CPU run; segment_aggregate at Q1's Zipf-skewed hits
+                 as ``_scatter_reduce`` issues them, past one cluster, with
+                 ``acc`` left unchanged, and a sweep over the cluster size;
+                 window_join at the Q3 and bench shapes, n_attrs 12,
+                 524,289 key rows and ``join_edge_cases``;
+                 flash_attention at 65,544 (lane, KV head) pairs; the
                  two model kernels at their decode and prefill shapes
                  (linear_scan also at T 1024, strong and zero decays, the
                  chunk's edges, and a sweep over the chunk length).
@@ -68,8 +72,11 @@ call, and the same for the plain version and the library call.
 
     python3 chip_smoke.py --scan-turns <parent checkout>
 
-times linear_scan's rows (decode, prefill T 128 and T 1024) of another
-checkout and of this one in turns, parent, this, this, parent, on one card.
+times, in another checkout and in this one, in turns (parent, this, this,
+parent) on one card: linear_scan's rows (decode, prefill T 128 and T
+1024), segment_aggregate as ``aggregate._scatter_reduce`` issues it at
+Q1's Zipf shape, and window_join as ``join.band_join_counts`` issues it
+at the Q3 and bench shapes (``turn_rows``).
 """
 
 import dataclasses
@@ -133,11 +140,10 @@ def single_ms(fn, setup=None) -> float:
     return median_ms(fn, setup, inner=1)
 
 
-def device_ms(fn, setup=None, kernel=None, reps: int = 20) -> float:
-    """Mean device time of one ``fn(*setup())`` (torch.profiler): the
-    CUDA kernels whose name contains ``kernel``, or with ``kernel=None``
-    every kernel, copy and fill the call starts (a library call's own
-    kernels), without the host time of a Python wrapper."""
+def device_events(fn, setup=None, reps: int = 20):
+    """[(name, device µs)] of every CUDA kernel, copy and fill that
+    ``reps`` calls of ``fn(*setup())`` start (torch.profiler), without the
+    host time of a Python wrapper."""
     from torch.profiler import ProfilerActivity, profile
     fn(*(setup() if setup else ()))
     # now and then a profiling session records no device activity at all;
@@ -149,12 +155,22 @@ def device_ms(fn, setup=None, kernel=None, reps: int = 20) -> float:
             for a in args:
                 fn(*a)
             torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and (kernel is None or kernel in e.name)]
-        if us:
-            return sum(us) / reps / 1e3
-    raise AssertionError(f"the profiler saw no {kernel or 'CUDA'} activity")
+        events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return events
+    raise AssertionError("the profiler saw no CUDA activity")
+
+
+def device_ms(fn, setup=None, kernel=None, reps: int = 20) -> float:
+    """Mean device time of one ``fn(*setup())``: the CUDA kernels whose
+    name contains ``kernel``, or with ``kernel=None`` every kernel, copy
+    and fill the call starts (a library call's own kernels)."""
+    us = [t for name, t in device_events(fn, setup, reps)
+          if kernel is None or kernel in name]
+    if not us:
+        raise AssertionError(f"the profiler saw no {kernel} activity")
+    return sum(us) / reps / 1e3
 
 
 def timings(kernel, plain, library=None, setup=None, plain_reps=20):
@@ -235,21 +251,8 @@ MERGE_BOUNDARIES = (4096, 4097, 8192, 8193, 16384, 16385, 32768, 32769,
 
 
 def kernels_per_call(fn, reps: int = 5) -> float:
-    """Device kernels one ``fn()`` launches (torch.profiler; a session that
-    recorded no device activity is taken again, as in ``device_ms``)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        n = sum(1 for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-        if n:
-            return n / reps
-    raise AssertionError("the profiler saw no CUDA activity")
+    """Device operations (kernels, copies, fills) one ``fn()`` starts."""
+    return len(device_events(fn, reps=reps)) / reps
 
 
 def inf_mix(rng, n, n_sources, w_inf):
@@ -555,57 +558,146 @@ def check_scalegate_merge_stacked(dev):
                 tier_valid=timed(6, valid_per_row=2048 // 6))
 
 
-def check_segment_aggregate(dev):
-    from repro_torch.kernels.segment_aggregate.ops import segment_aggregate_op
-    from repro_torch.kernels.segment_aggregate.ref import segment_aggregate_ref
-    rng = np.random.default_rng(12)
-    k, s = 4096, 4
+def q1_zipf_call(dev):
+    """Q1's aggregate update as the main path issues it: one
+    ``datagen.tweets`` tick (seed 7, Zipf(1.3) over 50,000 words, 4096
+    virtual keys, 2048 tweets of 6 words) through
+    ``aggregate._scatter_reduce`` for the instance that owns the tick's
+    hottest key at 16 instances.  -> ``call()`` running that once (the
+    same API in every tree of the port, so ``--scan-turns`` times it
+    where the main path pays it)."""
+    from repro_torch.core import aggregate as agg
+    from repro_torch.core.windows import WindowSpec
+    from repro_torch.data import datagen
+    k_virt, n_inst = 4096, 16
+    op = agg.count_aggregate(WindowSpec(wa=1000, ws=2000, wt="multi"),
+                             k_virt, out_cap=4096, extra_slots=2).resolved()
+    ready = next(datagen.tweets(
+        np.random.default_rng(7), n_ticks=1, tick=2048, words_per_tweet=6,
+        vocab=50000, k_virt=k_virt, rate_per_tick=200, device=dev))
+    acc = agg.fast_init(op, dev).op_state.zeta["acc"]
+    next_l = op.window.earliest_win_l(ready.tau.min())
+    # a key repeated in one tweet counts once (the fast path's dedup)
+    keys = ready.keys.sort(dim=1).values
+    first = torch.ones_like(keys, dtype=torch.bool)
+    first[:, 1:] = keys[:, 1:] != keys[:, :-1]
+    hot = int(torch.bincount(keys[first & (keys >= 0)].long()).argmax())
+    owner = torch.arange(k_virt, device=dev) % n_inst == hot % n_inst
+    return lambda: agg._scatter_reduce(op, "count", acc, ready, owner,
+                                       next_l)
 
-    def make(n, w, integer=True):
+
+def kernel_inputs(call, module, name):
+    """The arguments ``call()`` hands ``module.name`` (its one launch)."""
+    seen = []
+    kernel = getattr(module, name)
+    setattr(module, name, lambda *a, **kw: seen.append(a) or kernel(*a, **kw))
+    try:
+        call()
+    finally:
+        setattr(module, name, kernel)
+    return seen[0]
+
+
+def check_segment_aggregate(dev):
+    """The kernel against its plain version on the card: exactly on
+    integer-valued contributions, within ``rtol=1e-6`` on float sums, and
+    ``acc`` untouched (out-of-place).  Cases: Q1's Zipf call as
+    ``_scatter_reduce`` issues it (W 1, and W 2 with integer values),
+    even keys over [-1, K + 64) with slots outside [0, S), every
+    cluster size, the cluster body's last accumulator and the first one
+    past it, [2^18, 4, 1] (the global body), K below the cluster, N not
+    a multiple of 4, no hits, and unaligned inputs.  Timed at the Zipf
+    shape (the headline row) and at the even shape, with a sweep over the
+    cluster size."""
+    from repro_torch.core import aggregate as agg
+    from repro_torch.kernels.segment_aggregate import ops
+    from repro_torch.kernels.segment_aggregate.ref import segment_aggregate_ref
+    op = ops.segment_aggregate_op
+    rng = np.random.default_rng(12)
+    dev_t = lambda a: torch.as_tensor(a, device=dev)
+
+    def make(n, k, s, w, integer=True):
         keys = rng.integers(-1, k + 64, n).astype(np.int32)   # -1 and >= K
-        slots = rng.integers(0, s, n).astype(np.int32)
+        slots = rng.integers(-1, s + 1, n).astype(np.int32)   # -1 and S too
         vals = (rng.integers(0, 100, (n, w)) if integer
                 else rng.random((n, w))).astype(np.float32)
         acc = rng.integers(0, 50, (k, s, w)).astype(np.float32)
-        return [torch.as_tensor(a, device=dev) for a in (keys, slots, vals,
-                                                         acc)]
+        return tuple(map(dev_t, (keys, slots, vals, acc)))
 
-    ones = lambda n: torch.ones((n, 1), dtype=torch.float32, device=dev)
-    cases = {}
-    for n in (2048 * 6 * 2, 4097 * 6 * 2):       # one tick; the main path
-        kk, ss, _, acc = make(n, 1)
-        cases[f"count_n{n}"] = (kk, ss, ones(n), acc)
-    cases["int_sum_w2"] = tuple(make(24576, 2))
-    max_err = 0.0
-    for name, (kk, ss, vv, acc) in cases.items():
-        got = segment_aggregate_op(kk, ss, vv, acc.clone())
-        want = segment_aggregate_ref(kk, ss, vv, acc.clone())
-        if not torch.equal(got, want):
+    zipf = kernel_inputs(q1_zipf_call(dev), agg, "segment_aggregate_op")
+    kk, ss, _, acc = zipf
+    n = kk.shape[0]
+    live = kk >= 0
+    hot_cell_hits = int(torch.bincount(
+        (kk[live] * acc.shape[1] + ss[live]).long()).max())
+    assert hot_cell_hits >= 100, hot_cell_hits
+    cases = {"zipf_w1": zipf,
+             "zipf_w2": (kk, ss, dev_t(rng.integers(
+                 0, 100, (n, 2)).astype(np.float32)), dev_t(rng.integers(
+                     0, 50, (*acc.shape[:2], 2)).astype(np.float32))),
+             "even_n49164": make(49164, 4096, 4, 1),
+             "int_sum_w2": make(24576, 4096, 4, 2),
+             "cluster_last_k65536": make(49164, 65536, 4, 1),
+             "global_k65537": make(49164, 65537, 4, 1),
+             "global_k262144": make(49164, 2 ** 18, 4, 1),
+             "k5": make(3001, 5, 3, 2),
+             "n24579": make(24579, 4096, 4, 1),
+             "n0": make(0, 4096, 4, 1)}
+    kk, ss, vv, acc = make(24581, 4096, 4, 1)
+    cases["unaligned"] = (kk[1:], ss[1:], vv[1:], acc)
+
+    def compare(name, args, kernel=op, float_sums=False):
+        before = args[3].clone()
+        got = kernel(*args)
+        want = segment_aggregate_ref(*args)
+        if not torch.equal(args[3], before):
+            raise AssertionError(f"segment_aggregate {name}: acc changed")
+        if float_sums:
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
+        elif not torch.equal(got, want):
             raise AssertionError(f"segment_aggregate {name} differs")
-    # float sums: atomics reorder the adds; a few per cell, rtol 1e-6
-    kk, ss, vv, acc = make(2048, 1, integer=False)
-    got = segment_aggregate_op(kk, ss, vv, acc.clone())
-    want = segment_aggregate_ref(kk, ss, vv, acc.clone())
-    torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
-    max_err = float((got - want).abs().max())
+        return float((got - want).abs().max())
 
-    n = 4097 * 6 * 2
-    kk, ss, vv, acc = cases[f"count_n{n}"]
-    clone = lambda: (acc.clone(),)
-    row = timings(lambda a: segment_aggregate_op(kk, ss, vv, a),
-                  lambda a: segment_aggregate_ref(kk, ss, vv, a),
-                  setup=clone)
-    ok = (kk >= 0) & (kk < k)
-    flat = torch.where(ok, kk.long() * s + ss.long(), k * s)
-    flat_acc = lambda: (torch.zeros(k * s + 1, 1, device=dev),)
-    put = lambda a: a.index_put_((flat,), vv, accumulate=True)
-    row.update(library_ms=median_ms(put, flat_acc),
-               library_device_ms=device_ms(put, flat_acc))
-    hits = int(ok.sum())
-    ms, by = bound(n * (4 + 4 + 4) + 2 * k * s * 4, fp_ops=hits)
-    return dict(name="segment_aggregate", cases=len(cases) + 1,
-                max_abs_err=max_err, shape=f"N={n} into acc[{k},{s},1]",
-                **row, bound_ms=ms, bound_by=by)
+    for name, args in cases.items():
+        compare(name, args)
+    for name in ("zipf_w1", "even_n49164"):
+        for c in (1, 2, 4, 8, 16):
+            compare(f"{name}_cluster{c}", cases[name],
+                    functools.partial(ops._cuda, cluster=c))
+    # float sums: the adds land in another order; a few per cell, rtol 1e-6
+    max_err = max(compare("float_even", make(2048, 4096, 4, 1, False),
+                          float_sums=True),
+                  compare("float_global", make(2048, 2 ** 18, 4, 1, False),
+                          float_sums=True))
+
+    def timed(args):
+        kk, ss, vv, acc = args
+        n, w = vv.shape
+        k, s, _ = acc.shape
+        ok = (kk >= 0) & (kk < k) & (ss >= 0) & (ss < s)
+        flat = torch.where(ok, kk.long() * s + ss.long(), k * s)
+        padded = torch.cat([acc.reshape(-1, w), acc.new_zeros(1, w)])
+        put = lambda: padded.index_put((flat,), vv, accumulate=True)
+        # keys, slots and vals read once, acc read once, out written once
+        ms, by = bound(n * (8 + 4 * w) + 2 * k * s * w * 4,
+                       fp_ops=int(ok.sum()) * w)
+        return dict(shape=f"N={n} into acc[{k},{s},{w}], "
+                          f"{int(ok.sum())} live hits",
+                    kernels_per_call=kernels_per_call(lambda: op(*args)),
+                    **timings(lambda: op(*args),
+                              lambda: segment_aggregate_ref(*args),
+                              library=put),
+                    bound_ms=ms, bound_by=by)
+
+    # 0: the copy and the global kernel (two device operations)
+    sweep = {c: device_ms(lambda: ops._cuda(*zipf, cluster=c))
+             for c in (0, 1, 2, 4, 8, 16)}
+    return dict(name="segment_aggregate", cases=len(cases) + 12,
+                max_abs_err=max_err, hot_cell_hits=hot_cell_hits,
+                **timed(zipf), even=timed(cases["even_n49164"]),
+                cluster_sweep_ms=sweep,
+                no_hits_device_ms=device_ms(lambda: op(*cases["n0"])))
 
 
 def fill_join_state(k, ring, tick, n_ticks, dev):
@@ -627,27 +719,107 @@ def fill_join_state(k, ring, tick, n_ticks, dev):
     return st, next(gen), ws
 
 
+def join_edge_cases(rng):
+    """window_join's edge cases, as numpy inputs with their ``ws``:
+    R of 1, 17 and 33 (not a multiple of a staged chunk of 32); rotated
+    rings (round-robin from a head, every other row's first chunk all
+    stale) with one chunk all empty; stored taus whose ``tau + ws`` wraps
+    past INT_MAX as int32, against incoming taus down to INT_MIN; and
+    incoming taus of INT_MAX, 0 and negative."""
+    INF, MIN = 2 ** 31 - 1, -2 ** 31
+    cases = {}
+
+    def rand(b, k, r, p=4):
+        return [np.sort(rng.integers(100, 300, b)).astype(np.int32),
+                rng.integers(0, 2, b).astype(np.int32),
+                rng.uniform(0, 40, (b, p)).astype(np.float32),
+                np.where(rng.random((k, r)) < 0.3, -1,
+                         rng.integers(0, 280, (k, r))).astype(np.int32),
+                rng.integers(0, 2, (k, r)).astype(np.int32),
+                rng.uniform(0, 40, (k, r, p)).astype(np.float32)]
+
+    for r in (1, 17, 33):
+        cases[f"r{r}"] = (rand(300, 24, r), 60)
+    a = rand(300, 24, 130)
+    head = rng.integers(0, 130, 24)
+    head[::2] = 0
+    age = (np.arange(130)[None] - head[:, None]) % 130     # 0: the oldest
+    a[3] = (1000 + 10 * age).astype(np.int32)
+    a[3][:, 64:96] = -1
+    # the oldest 40 of every row are older than the window (tau + 500 <
+    # 1900 <= every incoming tau): rows with head 0 hold a stale chunk
+    a[0] = np.sort(rng.integers(1900, 2400, 300)).astype(np.int32)
+    cases["rotated_stale_and_empty"] = (a, 500)
+    a = rand(300, 24, 40)
+    a[3] = np.where(rng.random((24, 40)) < 0.5,
+                    rng.integers(INF - 1000, INF, (24, 40), dtype=np.int64),
+                    rng.integers(INF - 3000, INF - 1000, (24, 40),
+                                 dtype=np.int64)).astype(np.int32)
+    a[3][rng.random((24, 40)) < 0.2] = -1
+    a[3][0, :5] = MIN                                     # empty too
+    a[0] = np.sort(np.concatenate([
+        [MIN, MIN, MIN + 1, MIN + 500, MIN + 1500, -1, 0, 1, INF - 2500,
+         INF - 1500, INF - 1, INF, INF],
+        rng.integers(MIN, MIN + 2000, 100),
+        rng.integers(INF - 4000, INF, 187)]).astype(np.int32))
+    cases["horizon_wraps"] = (a, 2000)
+    a = rand(300, 24, 40)
+    a[0][:40] = INF
+    a[0][40:60] = 0
+    a[0][60:80] = -rng.integers(1, 2 ** 31, 20)
+    a[0][80] = MIN
+    cases["incoming_inf_zero_negative"] = (a, 60)
+    return cases
+
+
 def check_window_join(dev):
+    """The kernel against its plain version on the card, counts and comps
+    exactly: the Q3 pipeline's shape (B 256, K 512, R 16) and the bench
+    shape (B 512, K 1024, R 256) from rings the Q3 counting path filled,
+    B and K not multiples of a tile, n_attrs 12 (past the unrolled 8),
+    524,289 key rows, and ``join_edge_cases``.  Timed at the bench shape
+    (the headline row) and the Q3 shape."""
     from repro_torch.kernels.window_join.ops import window_join_op
     from repro_torch.kernels.window_join.ref import window_join_ref
     INF = torch.iinfo(torch.int32).max
     kw = dict(band=10.0, n_attrs=2)
+    n_cases = 0
 
-    def compare(name, args, ws):
-        got = window_join_op(*args, ws=ws, **kw)
-        want = window_join_ref(*args, ws=ws, **kw)
+    def compare(name, args, ws, **kw_):
+        nonlocal n_cases
+        kw_ = kw_ or kw
+        got = window_join_op(*args, ws=ws, **kw_)
+        want = window_join_ref(*args, ws=ws, **kw_)
         if not (torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])):
             raise AssertionError(f"window_join {name} differs")
+        n_cases += 1
+        return want
+
+    def timed(args, ws, stored):
+        row = timings(lambda: window_join_op(*args, ws=ws, **kw),
+                      lambda: window_join_ref(*args, ws=ws, **kw))
+        _, comps = window_join_op(*args, ws=ws, **kw)
+        bsz, (k, r) = args[0].shape[0], args[3].shape
+        pairs = bsz * k * r
+        # bytes: incoming tau/src/first 2 payload columns, the same of the
+        # stored rings, counts out; ops: an add and 3 compares per pair
+        # (int), a subtract, abs and compare per attribute of each opposite
+        # pair (fp)
+        ms, by = bound(bsz * 16 + k * r * 16 + bsz * k * 4 + 8,
+                       int_ops=4 * pairs, fp_ops=3 * 2 * int(comps))
+        return dict(shape=f"B={bsz}, K={k}, R={r}, P=4, n_attrs=2, "
+                          f"stored={stored}, comps={int(comps)}",
+                    **row, bound_ms=ms, bound_by=by)
 
     # q3 pipeline shape: K=512, ring 16, incoming tick 256
     st, b, ws = fill_join_state(512, 16, 256, 12, dev)
-    tau = torch.where(b.valid, b.tau, INF)
-    compare("q3_pipeline", (tau, b.source, b.payload, st.tau, st.stream,
-                            st.pay), ws.ws)
+    q3 = (torch.where(b.valid, b.tau, INF), b.source, b.payload, st.tau,
+          st.stream, st.pay)
+    compare("q3_pipeline", q3, ws.ws)
+    q3_row = timed(q3, ws.ws, int((st.tau >= 0).sum()))
     # bench shape: K=1024, R=256, B=512 (256 ms of 2000 t/s), rings filled
     # by 512 ticks = 262,144 stored tuples (~2.2 min of the 5 min window)
     st, b, ws = fill_join_state(1024, 256, 512, 512, dev)
-    stored = int((st.tau >= 0).sum())
     args = (b.tau, b.source, b.payload, st.tau, st.stream, st.pay)
     compare("bench", args, ws.ws)
     for nb in (500, 37):                           # B not a multiple of 32
@@ -668,25 +840,13 @@ def check_window_join(dev):
                      g.integers(0, 280, (k, r))).astype(np.int32),
             g.integers(0, 2, (k, r)).astype(np.int32),
             g.uniform(0, 40, (k, r, p)).astype(np.float32))]
-        got = window_join_op(*wide, ws=60, band=25.0, n_attrs=n_attrs)
-        want = window_join_ref(*wide, ws=60, band=25.0, n_attrs=n_attrs)
-        if not (torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
-                and int(want[0].sum()) > 0):
-            raise AssertionError(f"window_join {name} differs")
-    row = timings(lambda: window_join_op(*args, ws=ws.ws, **kw),
-                  lambda: window_join_ref(*args, ws=ws.ws, **kw))
-    _, comps = window_join_op(*args, ws=ws.ws, **kw)
-    bsz, (k, r) = b.tau.shape[0], st.tau.shape
-    pairs = bsz * k * r
-    # bytes: incoming tau/src/first 2 payload columns, the same of the
-    # stored rings, counts out; ops: an add and 3 compares per pair (int),
-    # a subtract, abs and compare per attribute of each opposite pair (fp)
-    ms, by = bound(bsz * 16 + k * r * 16 + bsz * k * 4 + 8,
-                   int_ops=4 * pairs, fp_ops=3 * 2 * int(comps))
-    return dict(name="window_join", cases=7, max_abs_err=0.0,
-                shape=f"B={bsz}, K={k}, R={r}, P=4, n_attrs=2, "
-                      f"stored={stored}, comps={int(comps)}",
-                **row, bound_ms=ms, bound_by=by)
+        want = compare(name, wide, 60, band=25.0, n_attrs=n_attrs)
+        assert int(want[0].sum()) > 0, name
+    for name, (a, ws_) in join_edge_cases(np.random.default_rng(22)).items():
+        want = compare(name, [torch.as_tensor(x, device=dev) for x in a], ws_)
+        assert int(want[1]) > 0, name
+    return dict(name="window_join", cases=n_cases, max_abs_err=0.0,
+                **timed(args, ws.ws, int((st.tau >= 0).sum())), q3=q3_row)
 
 
 def check_flash_attention(dev):
@@ -944,11 +1104,50 @@ def scan_timed_rows(dev):
             for name, (bh, t, s0) in SCAN_TIMED.items()}
 
 
+# window_join's timed shapes through ``join.band_join_counts``: (K, ring,
+# tick, ticks that fill the rings), the Q3 pipeline's and the bench's
+JOIN_TIMED = {"q3": (512, 16, 256, 12), "bench": (1024, 256, 512, 512)}
+
+
+def call_row(call, kernel: str) -> dict:
+    """``call()`` as the main path issues it: mean and lone times (CUDA
+    events), and per call from the profiler the device operations, their
+    device time, the time of the kernels whose symbol contains ``kernel``
+    and that of device-to-device copies (a clone)."""
+    events = device_events(call)
+    per_call = lambda pick: sum(t for name, t in events if pick(name)) / 20e3
+    return dict(ms=median_ms(call), single_ms=single_ms(call),
+                ops_per_call=len(events) / 20,
+                device_ms=per_call(lambda name: True),
+                kernel_device_ms=per_call(lambda name: kernel in name),
+                copy_device_ms=per_call(lambda name: "Memcpy DtoD" in name))
+
+
+def turn_rows(dev) -> dict:
+    """The rows ``--scan-turns`` times in each tree, on the same data in
+    every run: linear_scan's three, segment_aggregate through
+    ``aggregate._scatter_reduce`` at Q1's Zipf shape, and window_join
+    through ``join.band_join_counts`` at ``JOIN_TIMED``'s shapes (the
+    same API in both trees, so each is timed where the main path pays
+    it)."""
+    from repro_torch.core import join
+    rows = dict(linear_scan=scan_timed_rows(dev),
+                segment_aggregate=call_row(q1_zipf_call(dev),
+                                           "segment_aggregate"))
+    rows["window_join"] = {}
+    for name, shape in JOIN_TIMED.items():
+        st, b, ws = fill_join_state(*shape, dev)
+        rows["window_join"][name] = call_row(
+            lambda: join.band_join_counts(st, b, ws, band=10.0, n_attrs=2),
+            "window_join")
+    return rows
+
+
 def scan_turns(parent: str) -> None:
-    """linear_scan's timed rows of the checkout at ``parent`` and of this
-    one, in turns (parent, this, this, parent), each turn a process of its
-    own that builds and imports its checkout's ``repro_torch``; one JSON
-    line a turn.
+    """``turn_rows`` of the checkout at ``parent`` and of this one, in
+    turns (parent, this, this, parent), each turn a process of its own
+    that builds and imports its checkout's ``repro_torch``; one JSON line
+    a turn.
 
         python3 chip_smoke.py --scan-turns <root of the parent checkout>
     """
@@ -956,7 +1155,7 @@ def scan_turns(parent: str) -> None:
             "import torch, chip_smoke; "
             "from repro_torch.kernels import build; build.library(); "
             "torch.backends.cuda.matmul.allow_tf32 = False; "
-            "print(json.dumps(chip_smoke.scan_timed_rows("
+            "print(json.dumps(chip_smoke.turn_rows("
             "torch.device('cuda', 0))))")
     trees = {"parent": pathlib.Path(parent).resolve(), "change": ROOT}
     for turn, name in enumerate(("parent", "change", "change", "parent")):
@@ -1696,7 +1895,9 @@ def main(argv) -> int:
                              "max_active_clusters", "prefill",
                              "prefill_t1024", "chunk_sweep_ms",
                              "decode_split_ms", "push_cases",
-                             "max_abs_err_bf16") if k in r})
+                             "max_abs_err_bf16", "kernels_per_call",
+                             "hot_cell_hits", "even", "q3",
+                             "no_hits_device_ms") if k in r})
         for r in rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

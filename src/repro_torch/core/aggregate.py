@@ -7,10 +7,10 @@ commutative reducer.
 
 ``tick_fast`` scatters the whole ready batch into (key, window-slot) cells
 at once instead of scanning tuple by tuple; count and sum go through the
-``segment_aggregate`` kernel, max through a scatter-max.  The kernel adds
-into ``acc`` in place, and every VSN instance of a tick starts from the
-same shared state, so ``_scatter_reduce`` hands the kernel a clone of
-``acc`` per instance: no instance's adds reach another's input.
+``segment_aggregate`` kernel, max through a scatter-max.  Both are
+out-of-place, as in the reference: every VSN instance of a tick starts
+from the same shared ``acc``, and each gets a new accumulator back, so no
+instance's adds reach another's input.
 
 Departures from the reference, both deterministic where it is not: the
 window-generation table ``slot_l`` is written by in-range lanes only (the
@@ -172,8 +172,7 @@ def _scatter_reduce(op: OperatorDef, kind: str, acc: torch.Tensor,
         else:  # "sum"
             val = ready.payload[:, :acc.shape[-1]].repeat(reps, 1)
         acc = segment_aggregate_op(
-            torch.where(m, k, -1), s, torch.where(m[:, None], val, 0.0),
-            acc.clone())
+            torch.where(m, k, -1), s, torch.where(m[:, None], val, 0.0), acc)
     return acc, k, s, l, m, m_any
 
 

@@ -49,8 +49,8 @@ PROTOTYPES = {
                                       _P, _P),
     # cluster
     "repro_scalegate_max_clusters": (_I,),
-    # keys, slots, vals, acc, n, w, k, s, stream
-    "repro_segment_aggregate": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # keys, slots, vals, acc, out, n, w, k, s, cluster, stream
+    "repro_segment_aggregate": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # new_tau, new_src, new_pay, b, p, st_tau, st_src, st_pay, k, r,
     # ws, band, n_attrs, counts, comps, stream
     "repro_window_join": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I,

@@ -1,13 +1,19 @@
 """Entry point of the window_join kernel: plain version on the CPU, the CUDA
 kernel (``csrc/window_join.cu``) on the card.
 
-Held against ``src/repro/kernels/window_join/ops.py``.  Returns
-``(counts i32[B, K], comps)``; ``comps`` is a 0-dim int64 tensor (the
-kernel accumulates it with 64-bit atomics).  Both results are exact.
-Incoming lanes past B inside the kernel's last tile stage ``INF_TIME``, as
-the Pallas wrapper's sublane padding does, and count nothing.  Any
-``n_attrs <= P`` is taken, as the reference takes it (the kernel unrolls
-the first 8 columns and reads the rest from memory).
+Held against ``src/repro/kernels/window_join/ops.py``.  Contract, as the
+reference's: returns ``(counts i32[B, K], comps)``, the band matches of
+each incoming tuple against each key row's live (``st_tau >= 0``), fresh
+(``st_tau + ws >= new_tau`` with int32 wrap-around), opposite-stream
+entries, and the total of such opposite pairs without the band test;
+``comps`` is a 0-dim int64 tensor (the kernel accumulates it with 64-bit
+atomics).  Tolerance: none, both results are exact against the plain
+version (integer counts; the band test is one float subtraction and
+compare per column, rounded alike).  Incoming lanes past B inside the
+kernel's last tile stage ``INF_TIME``, as the Pallas wrapper's sublane
+padding does, and count nothing.  Any B, K, R and ``n_attrs <= P`` is
+taken, as the reference takes it (the kernel unrolls the first 8 columns
+and reads the rest from memory).
 """
 
 from __future__ import annotations

@@ -1,8 +1,10 @@
 """Plain PyTorch version of the window_join kernel.
 
-Held against ``src/repro/kernels/window_join/ref.py``.  Returns
+Held against ``src/repro/kernels/window_join/ref.py``, exactly.  Returns
 ``(counts i32[B, K], comps)`` with ``comps`` a 0-dim int64 tensor: the
 reference sums it in int32, which the port's shapes never overflow.
+``st_tau + ws`` wraps as int32 (a tensor plus a Python int keeps the
+tensor's type), as in the reference and the CUDA kernel.
 """
 
 from __future__ import annotations

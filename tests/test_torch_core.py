@@ -178,6 +178,39 @@ def test_aggregate_tick_fast_matches_reference(kind):
         assert_tree_equal(np_tree(js), np_tree(ps), skip=("slot_l",))
 
 
+def test_two_instances_leave_the_shared_acc_untouched():
+    """Two VSN instances tick from one ``FastAggState`` (``run_tick``): the
+    shared ``zeta["acc"]`` is unchanged afterwards and the merged state
+    and outputs equal the reference's, so no instance writes another's
+    input (the aggregate kernel is out-of-place; nothing clones ``acc``)."""
+    from repro.core.vsn import merge_fast_state as j_merge
+    from repro.core.vsn import run_tick as j_run_tick
+    from repro_torch.core.vsn import merge_fast_state as p_merge
+    from repro_torch.core.vsn import run_tick as p_run_tick
+    k = 16
+    jop, pop = _ops("count", k, out_cap=128, extra_slots=2)
+    jop, pop = jop.resolved(), pop.resolved()
+    fmu = (np.arange(k) % 2).astype(np.int32)
+    active = np.ones(2, bool)
+    js, ps = JA.fast_init(jop), PA.fast_init(pop, CPU)
+    for b in _agg_stream(np.random.default_rng(5), k=k):
+        shared = ps.op_state.zeta["acc"]
+        before = shared.clone()
+        js, jo = j_run_tick(
+            jop, js, b, jnp.asarray(fmu), jnp.asarray(active),
+            tick_fn=lambda o, s, r, m, explicit_w=None: JA.tick_fast(
+                o, "count", s, r, m, backend="xla"), merge_fn=j_merge)
+        ps, po = p_run_tick(
+            pop, ps, to_port(b), torch.from_numpy(fmu),
+            torch.from_numpy(active),
+            tick_fn=lambda o, s, r, m, explicit_w=None: PA.tick_fast(
+                o, "count", s, r, m), merge_fn=p_merge)
+        assert torch.equal(shared, before)
+        assert_tree_equal(np_tree(jo), np_tree(po))
+        assert_tree_equal(np_tree(js), np_tree(ps), skip=("slot_l",))
+    assert ps.op_state.zeta["acc"].sum() > 0
+
+
 def test_general_tick_matches_reference():
     jop, pop = _ops("count", 8, out_cap=128)
     resp = np.arange(8) < 5

@@ -4,6 +4,7 @@ same numpy inputs.  The CUDA kernels themselves run only on the card
 (``chip_smoke.py``); here the registry must send CPU tensors to the plain
 version and count no launch."""
 
+import importlib.util
 import os
 import pathlib
 import re
@@ -24,6 +25,7 @@ from repro.kernels.window_join.ops import window_join_op as j_join
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.scalegate_merge import ops as merge_ops
 from repro_torch.kernels.scalegate_merge.ops import scalegate_merge_op
+from repro_torch.kernels.segment_aggregate import ops as segment_aggregate_ops
 from repro_torch.kernels.segment_aggregate.ops import segment_aggregate_op
 from repro_torch.kernels.window_join import ops as window_join_ops
 from repro_torch.kernels.window_join.ops import window_join_op
@@ -177,6 +179,73 @@ def test_segment_aggregate_plain_equals_pallas(w, dead):
     if dead:
         live = (keys >= 0) & (keys < k)
         assert got.sum() == acc.sum() + vals[live].sum()
+
+
+@pytest.mark.parametrize("w", [1, 2])
+def test_segment_aggregate_zipf_hits_leave_acc_and_equal_pallas(w):
+    """Out-of-place on a Zipf(1.3)-keyed hit block (Q1's skew) with
+    hundreds of hits on one cell: the input ``acc`` is unchanged and the
+    result equals the JAX kernel's exactly (integer contributions)."""
+    rng = np.random.default_rng(40 + w)
+    n, k, s = 4096, 64, 4
+    keys = (rng.zipf(1.3, n) % k).astype(np.int32)
+    keys[rng.random(n) < 0.2] = -1
+    slots = rng.integers(0, s, n).astype(np.int32)
+    live = keys >= 0
+    assert np.bincount(keys[live] * s + slots[live]).max() >= 100
+    vals = rng.integers(0, 7, (n, w)).astype(np.float32)
+    acc = rng.integers(0, 5, (k, s, w)).astype(np.float32)
+    want = np.asarray(j_agg(keys, slots, vals, acc, tile_k=64,
+                            backend="pallas-interpret"))
+    args = [torch.from_numpy(a.copy()) for a in (keys, slots, vals, acc)]
+    got = segment_aggregate_op(*args)
+    np.testing.assert_array_equal(want, got.numpy())
+    np.testing.assert_array_equal(args[3].numpy(), acc)
+
+
+@pytest.mark.parametrize("shape,cluster,want", [
+    ((4096, 4, 1), None, 16), ((1, 1, 1), None, 16),
+    ((65536, 4, 1), None, 16), ((65537, 4, 1), None, 0),
+    ((2 ** 18, 4, 1), None, 0), ((2048, 4, 2), 1, 1), ((4096, 4, 1), 0, 0)])
+def test_segment_aggregate_launch_plan(shape, cluster, want):
+    """One cluster of 16 blocks while a block's key rows fit its 16,384
+    cells (Q1's [4096, 4, 1] and up to [65536, 4, 1]), else the global
+    body (0); a forced size is taken where it fits."""
+    assert segment_aggregate_ops.plan(*shape, cluster=cluster) == want
+
+
+@pytest.mark.parametrize("shape,cluster", [((65536, 4, 1), 8),
+                                           ((4096, 4, 1), 17),
+                                           ((4096, 4, 1), -1)])
+def test_segment_aggregate_launch_plan_refuses(shape, cluster):
+    with pytest.raises(ValueError):
+        segment_aggregate_ops.plan(*shape, cluster=cluster)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("name", ["r1", "r17", "r33", "rotated_stale_and_empty",
+                                  "horizon_wraps",
+                                  "incoming_inf_zero_negative"])
+def test_window_join_plain_equals_pallas_on_edges(name):
+    """The redesigned kernel's edges, which ``chip_smoke.py`` also holds
+    the card to: R not a multiple of a staged chunk, a rotated ring with
+    an all-stale and an all-empty chunk, ``st_tau + ws`` wrapping past
+    INT_MAX, incoming taus of INT_MAX, 0 and negative (INT_MIN too)."""
+    a, ws = _chip_smoke().join_edge_cases(np.random.default_rng(22))[name]
+    k = a[3].shape[0]
+    jc, jn = j_join(*a, ws=ws, band=10.0, n_attrs=2, tile_k=k,
+                    backend="pallas-interpret")
+    pc, pn = window_join_op(*(torch.from_numpy(x) for x in a), ws=ws,
+                            band=10.0, n_attrs=2)
+    np.testing.assert_array_equal(np.asarray(jc), pc.numpy())
+    assert int(jn) == int(pn) > 0
 
 
 @pytest.mark.parametrize("b", [8, 13])
