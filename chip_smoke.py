@@ -41,15 +41,32 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
                  tuples in arrival order, the CPU by source first, so the
                  round-robin ring layout, and with it the per-key-row
                  counts, may differ).
-5. ``q1_ingest_tier`` — the Q1 stream over 8 sources through the ingest
+5. ``q1_persistent`` — Q1 as in phase 3 through the persistent K-tick
+                 driver (``VSNPipeline.run_persistent``, 5 super-batches
+                 of 8, one CUDA graph captured at the first and replayed
+                 by the rest), the reconfiguration at tick 16
+                 (``reconfig_at`` 0) and at tick 19 (``reconfig_at`` 3):
+                 each run equal tick for tick to the eager card run and
+                 to the CPU's plain loop, one graph with no host copy,
+                 the replays run under ``set_sync_debug_mode("error")``
+                 but for one control-lane read a super-batch; eager
+                 against persistent under torch.profiler.
+6. ``q3_persistent`` — the Q3 fast join path in 3 super-batches of 4,
+                 the reconfiguration at tick 6: equal to the eager card
+                 run and, as unordered pairs with equal comparisons, to
+                 the CPU; then the general O+ tick, whose capture fails,
+                 refused with ``GraphCaptureError``.
+7. ``q1_ingest_tier`` — the Q1 stream over 8 sources through the ingest
                  tier (4 thread leaves, the fused root merge, one host
                  joining and one leaving) into ``AsyncStreamRuntime`` over
                  ``VSNPipeline`` with a threshold controller: every round
                  totally ordered, the tier's tuples equal to one flat
                  gate's, the outputs equal to a CPU ``run_sync`` replaying
                  the card run's reconfigurations, 0 sigma bytes moved, and
-                 one stacked-merge launch per root round.
-6-7. ``serve_qwen3_14b``, ``serve_rwkv6_7b`` — each model at its published
+                 one stacked-merge launch per root round; then a second
+                 pass with ``super_batch`` 8 (one graph a round shape),
+                 equal to a CPU ``run_sync`` replaying its own trace.
+8-9. ``serve_qwen3_14b``, ``serve_rwkv6_7b`` — each model at its published
                  width and depth in bfloat16 (random parameters drawn on the
                  card), one after the other, through ``build_runtime`` ->
                  ``AsyncStreamRuntime`` -> ``ServingPipeline`` ->
@@ -61,9 +78,10 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
                  token-identical to ``reference_decode`` (see
                  ``serve_full_width``).
 
-Phases 3 to 7 are the main path: each zeroes the launch counts right
+Phases 3 to 9 are the main path: each zeroes the launch counts right
 before its card run and reads them right after, and the ``{"kernels":
-[...]}`` line reports their sum with phase 2's times.  The last line is
+[...]}`` line reports their sum with phase 2's times.  A graph replay
+counts the launches its capture tallied (``dispatch.add_launches``).  The last line is
 ``{"ok": true, "device": {...}}``.  A kernel's ``ms`` is the median over
 20 CUDA-event pairs of the mean of 20 back-to-back launches after
 warm-up, ``single_ms`` the median of 20 single launches (which also spans
@@ -75,8 +93,8 @@ call, and the same for the plain version and the library call.
 times, in another checkout and in this one, in turns (parent, this, this,
 parent) on one card: linear_scan's rows (decode, prefill T 128 and T
 1024), segment_aggregate as ``aggregate._scatter_reduce`` issues it at
-Q1's Zipf shape, and window_join as ``join.band_join_counts`` issues it
-at the Q3 and bench shapes (``turn_rows``).
+Q1's Zipf shape, window_join as ``join.band_join_counts`` issues it at
+the Q3 and bench shapes, and Q1's eager tick (``turn_rows``).
 """
 
 import dataclasses
@@ -1123,17 +1141,51 @@ def call_row(call, kernel: str) -> dict:
                 copy_device_ms=per_call(lambda name: "Memcpy DtoD" in name))
 
 
+def q1_tick_row(dev) -> dict:
+    """Q1's eager tick as ``q1_wordcount`` profiles it (ticks 24-27 of the
+    same stream, 16 instances after the switch at tick 16) through the
+    tree's ``VSNPipeline.step`` and ``aggregate.tick_fast``:
+    ``device_profile``'s wall, device busy share, device operations and
+    host syncs a tick."""
+    from repro_torch.core import aggregate as agg
+    from repro_torch.core.controller import (Reconfiguration, active_mask,
+                                             balanced_fmu)
+    from repro_torch.core.runtime import VSNPipeline
+    from repro_torch.core.vsn import merge_fast_state
+    from repro_torch.core.windows import WindowSpec
+    from repro_torch.data import datagen
+    op = agg.count_aggregate(WindowSpec(wa=1000, ws=2000, wt="multi"), 4096,
+                             out_cap=4096, extra_slots=2)
+    batches = list(datagen.tweets(
+        np.random.default_rng(7), n_ticks=28, tick=2048, words_per_tweet=6,
+        vocab=50000, k_virt=4096, rate_per_tick=200, device="cpu"))
+    rc = Reconfiguration(epoch=1, n_active=16, fmu=balanced_fmu(4096, 16, 16),
+                         active=active_mask(16, 16))
+    pipe = VSNPipeline(op, n_max=16, n_active=4, stash_cap=2048,
+                       tick_fn=lambda o, s, r, m, explicit_w=None:
+                       agg.tick_fast(o, "count", s, r, m),
+                       merge_fn=merge_fast_state,
+                       init_sigma=functools.partial(agg.fast_init, op),
+                       device=dev)
+    for i in range(24):
+        pipe.step(batches[i], reconfig=rc if i == 16 else None)
+    torch.cuda.synchronize()
+    return device_profile(lambda i: pipe.step(batches[24 + i]), 4,
+                          kernel=MERGE_KERNEL_SYMBOL)
+
+
 def turn_rows(dev) -> dict:
     """The rows ``--scan-turns`` times in each tree, on the same data in
     every run: linear_scan's three, segment_aggregate through
-    ``aggregate._scatter_reduce`` at Q1's Zipf shape, and window_join
-    through ``join.band_join_counts`` at ``JOIN_TIMED``'s shapes (the
-    same API in both trees, so each is timed where the main path pays
-    it)."""
+    ``aggregate._scatter_reduce`` at Q1's Zipf shape, window_join
+    through ``join.band_join_counts`` at ``JOIN_TIMED``'s shapes, and
+    Q1's eager tick (``q1_tick_row``); the same API in both trees, so
+    each is timed where the main path pays it."""
     from repro_torch.core import join
     rows = dict(linear_scan=scan_timed_rows(dev),
                 segment_aggregate=call_row(q1_zipf_call(dev),
-                                           "segment_aggregate"))
+                                           "segment_aggregate"),
+                q1_tick=q1_tick_row(dev))
     rows["window_join"] = {}
     for name, shape in JOIN_TIMED.items():
         st, b, ws = fill_join_state(*shape, dev)
@@ -1347,14 +1399,20 @@ def q1_wordcount(dev):
         cpu_run_seconds=cpu_seconds, profile=profile, launches=launches)
 
 
+# a substring of each of the port's kernel symbols (csrc/*.cu)
+PORT_KERNEL_SYMBOLS = ("scalegate_", "segment_aggregate", "window_join",
+                       "flash_", "linear_scan_")
+
+
 def device_profile(step, n: int, kernel=None) -> dict:
     """``step(i)`` for i < n under torch.profiler: host wall time per tick,
     the share of it the device spent in kernels and copies, device
     operations per tick, host synchronizations per tick and the host time
-    blocked in them, the kernels that took the most device time, and
-    with ``kernel`` the device time per tick of the kernels whose name
-    contains it.  Device numbers are None when the profiler recorded no
-    device activity."""
+    blocked in them, the kernels that took the most device time, with
+    ``kernel`` the device time per tick of the kernels whose name
+    contains it, and that of each of the port's kernels the ticks ran.
+    Device numbers are None when the profiler recorded no device
+    activity."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1382,7 +1440,11 @@ def device_profile(step, n: int, kernel=None) -> dict:
                                   for e in sync_ev) / n / 1e3,
         top_device_ms_per_tick=[(name[:60], us / n / 1e3) for name, us in top],
         kernel_ms_per_tick=None if kernel is None else sum(
-            us for name, us in by_name.items() if kernel in name) / n / 1e3)
+            us for name, us in by_name.items() if kernel in name) / n / 1e3,
+        port_kernel_ms_per_tick={sym: sum(
+            us for name, us in by_name.items() if sym in name) / n / 1e3
+            for sym in PORT_KERNEL_SYMBOLS
+            if any(sym in name for name in by_name)})
 
 
 # ---------------------------------------------------------------------------
@@ -1465,7 +1527,343 @@ def q3_scalejoin(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: Q1 over the ingest tier (fused root) into AsyncStreamRuntime
+# phases 5-6: the persistent K-tick driver (one CUDA graph a shape)
+# ---------------------------------------------------------------------------
+
+def tick_rows(out):
+    """[(sorted outputs, switched, instance loads)] per tick of a
+    ``PersistentOut``."""
+    from repro_torch.io.sinks import flatten_outputs
+    from repro_torch.tree import tree_map
+    rows = []
+    for i in range(out.switched.shape[0]):
+        o = [tree_map(lambda a: a[i], x) for x in (out.outs_pre,
+                                                   out.outs_post)]
+        rows.append((sorted(flatten_outputs(o[0]) + flatten_outputs(o[1])),
+                     bool(out.switched[i]), out.inst_load[i].tolist()))
+    return rows
+
+
+def persistent_run(pipe, batches, k, rc, rc_tick, sync_free=False):
+    """``batches`` through ``pipe.run_persistent`` in super-batches of
+    ``k``, the reconfiguration at tick ``rc_tick``.  With ``sync_free``
+    every call after the first (a replay) runs under
+    ``set_sync_debug_mode("error")``; its one host read, the control lane,
+    follows.  -> (per-tick rows, seconds per super-batch, overflow)."""
+    from repro_torch.core.runtime import fold_frontier
+    n_in = pipe.op.n_inputs
+    frontier = np.zeros((n_in,), np.int64)
+    rows, seconds, overflow = [], [], 0
+    for j in range(0, len(batches), k):
+        group = batches[j:j + k]
+        at = rc_tick - j if j <= rc_tick < j + k else None
+        checked = sync_free and j > 0
+        t0 = time.perf_counter()
+        if checked:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = pipe.run_persistent(
+                group, reconfig=None if at is None else rc,
+                reconfig_at=at or 0, frontier0=frontier)
+        finally:
+            if checked:
+                torch.cuda.set_sync_debug_mode(0)
+        bool(out.switched.any())                # the control-lane read
+        seconds.append(time.perf_counter() - t0)
+        for b in group:
+            fold_frontier(frontier, b, n_in)
+        rows += tick_rows(out)
+        overflow += int(out.outs_pre.overflow.sum()
+                        + out.outs_post.overflow.sum())
+    return rows, seconds, overflow
+
+
+def graph_summary(pipe) -> dict:
+    """``persistent_graphs()`` by shape, kernel names cut to the port's
+    (the rest counted together)."""
+    out = {}
+    for key, g in pipe.persistent_graphs().items():
+        nodes = g["nodes"] or {}
+        ours = {}
+        for name, n in (nodes.get("by_kernel") or {}).items():
+            short = (kernel_name(name) if any(sym in name for sym in
+                                              PORT_KERNEL_SYMBOLS)
+                     else "torch and other")
+            ours[short] = ours.get(short, 0) + n
+        out["x".join(map(str, key))] = dict(
+            launches_per_replay=g["launches"], capture_s=g["capture_s"],
+            instantiate_s=g["instantiate_s"], replays=g["replays"],
+            nodes=nodes.get("nodes"), by_type=nodes.get("by_type"),
+            host_copies=nodes.get("host_copies"), kernels=ours)
+    return out
+
+
+def q1_persistent(dev, n_ticks=40, tick=2048, k_virt=4096, k=8,
+                  rc_ticks=(16, 19)):
+    """Q1 (as ``q1_wordcount``) through ``VSNPipeline.run_persistent`` in
+    super-batches of ``k``: run (a) reconfigures at tick 16
+    (``reconfig_at`` 0 of the third super-batch), run (b) at tick 19
+    (``reconfig_at`` 3).  Each equals, tick for tick, the eager card run
+    and the CPU's persistent loop with the same reconfiguration tick.
+    The defaults are the card's run; smaller arguments rehearse it on the
+    CPU, where there is no graph to check."""
+    from repro_torch.core import aggregate as agg
+    from repro_torch.core.controller import (Reconfiguration, active_mask,
+                                             balanced_fmu)
+    from repro_torch.core.runtime import VSNPipeline
+    from repro_torch.core.vsn import merge_fast_state
+    from repro_torch.core.windows import WindowSpec
+    from repro_torch.data import datagen
+    from repro_torch.io.sinks import flatten_outputs
+    from repro_torch.kernels import dispatch
+
+    N_MAX = 16
+    dev = torch.device(dev)
+    card = dev.type == "cuda"
+    op = agg.count_aggregate(WindowSpec(wa=1000, ws=2000, wt="multi"), k_virt,
+                             out_cap=4096, extra_slots=2)
+    batches = list(datagen.tweets(
+        np.random.default_rng(7), n_ticks=n_ticks, tick=tick,
+        words_per_tweet=6, vocab=50000, k_virt=k_virt, rate_per_tick=200,
+        device="cpu"))
+    rc = Reconfiguration(epoch=1, n_active=16,
+                         fmu=balanced_fmu(k_virt, 16, N_MAX),
+                         active=active_mask(16, N_MAX))
+
+    def pipeline(device):
+        """The pipeline and its device-side ring-overrun total: the tick
+        function adds each tick's count into it in place (a graph replays
+        that add), so collisions are read from the device once."""
+        total = torch.zeros((), dtype=torch.int32, device=device)
+
+        def count_tick(op_, st, ready, resp, explicit_w=None):
+            st, outs = agg.tick_fast(op_, "count", st, ready, resp,
+                                     explicit_w=explicit_w)
+            total.add_(st.collisions)
+            return st, outs
+
+        pipe = VSNPipeline(op, n_max=N_MAX, n_active=4, stash_cap=tick,
+                           tick_fn=count_tick, merge_fn=merge_fast_state,
+                           init_sigma=functools.partial(agg.fast_init, op),
+                           device=device)
+        return pipe, total
+
+    def eager(rc_tick):
+        pipe, _ = pipeline(dev)
+        rows, seconds = [], []
+        for i, b in enumerate(batches):
+            t0 = time.perf_counter()
+            o1, o2, sw, load = pipe.step_staged(
+                b, reconfig=rc if i == rc_tick else None)
+            rows.append((sorted(flatten_outputs(o1) + flatten_outputs(o2)),
+                         bool(sw), load.tolist()))
+            seconds.append(time.perf_counter() - t0)
+        return rows, seconds
+
+    eager_rows = {t: eager(t) for t in rc_ticks}
+    t0 = time.perf_counter()
+    cpu_rows = {t: persistent_run(pipeline("cpu")[0], batches, k, rc, t)[0]
+                for t in rc_ticks}
+    cpu_seconds = time.perf_counter() - t0
+
+    dispatch.reset_launches()
+    runs = {}
+    for t in rc_ticks:
+        pipe, total = pipeline(dev)
+        rows, seconds, overflow = persistent_run(pipe, batches, k, rc, t,
+                                                 sync_free=card)
+        runs[t] = (pipe, total, rows, seconds, overflow)
+    launches = {n: v.launches for n, v in dispatch.registered().items()}
+
+    for t, (pipe, total, rows, _, overflow) in runs.items():
+        for i, (got, want, cpu) in enumerate(zip(rows, eager_rows[t][0],
+                                                 cpu_rows[t])):
+            if got != want:
+                raise AssertionError(f"q1_persistent (reconfig at {t}) tick "
+                                     f"{i}: differs from the eager run")
+            if got != cpu:
+                raise AssertionError(f"q1_persistent (reconfig at {t}) tick "
+                                     f"{i}: differs from the CPU run")
+        assert [i for i, r in enumerate(rows) if r[1]] == \
+            [i for i, r in enumerate(eager_rows[t][0]) if r[1]]
+        assert sum(r[1] for r in rows) == 1, t
+        assert overflow == 0 and int(pipe.sg.overflow) == 0
+        assert int(total) == 0 and int(pipe.sigma.collisions) == 0
+        assert pipe.bytes_transferred == 0
+        if card:
+            graphs = pipe.persistent_graphs()
+            assert len(graphs) == 1, list(graphs)
+            (g,) = graphs.values()
+            assert g["replays"] == n_ticks // k - 1, g["replays"]
+            if g["nodes"] is not None:
+                assert g["nodes"]["host_copies"] == 0, g["nodes"]
+    if not card:
+        return dict(phase="q1_persistent", equal_to_eager=True,
+                    equal_to_cpu=True)
+    assert launches["scalegate_merge"] > 0 and \
+        launches["segment_aggregate"] > 0, launches
+
+    # Eager against persistent on fresh pipelines: two super-batches of
+    # ticks 24-39 (16 instances), under torch.profiler.
+    first = 24
+    prof_eager, _ = pipeline(dev)
+    for i in range(first):
+        prof_eager.step(batches[i], reconfig=rc if i == rc_ticks[0] else None)
+    torch.cuda.synchronize()
+    eager_prof = device_profile(lambda i: prof_eager.step(batches[first + i]),
+                                2 * k, kernel=MERGE_KERNEL_SYMBOL)
+    prof_pers, _ = pipeline(dev)
+    persistent_run(prof_pers, batches[:first], k, rc, rc_ticks[0])
+    torch.cuda.synchronize()
+
+    def replay(i):
+        out = prof_pers.run_persistent(batches[first + i * k:
+                                               first + (i + 1) * k])
+        bool(out.switched.any())
+    pers_prof = device_profile(replay, 2, kernel=MERGE_KERNEL_SYMBOL)
+    per_tick = {key: (v / k if isinstance(v, float) and key != "ticks"
+                      and "share" not in key else v)
+                for key, v in pers_prof.items()}
+    per_tick["ticks"] = 2 * k
+    per_tick["top_device_ms_per_tick"] = [
+        (n, ms / k) for n, ms in pers_prof["top_device_ms_per_tick"]]
+    per_tick["port_kernel_ms_per_tick"] = {
+        sym: ms / k for sym, ms in pers_prof["port_kernel_ms_per_tick"].items()}
+
+    pipe_a, _, rows_a, sec_a, _ = runs[rc_ticks[0]]
+    steady_p = [x for j, x in enumerate(sec_a) if j not in (0, 2)]
+    steady_e = [x for i, x in enumerate(eager_rows[rc_ticks[0]][1])
+                if i not in (0, rc_ticks[0])]
+    return dict(
+        phase="q1_persistent", ticks=n_ticks, super_batch=k,
+        reconfig_ticks=list(rc_ticks), equal_to_eager=True,
+        equal_to_cpu=True, outputs=sum(len(r[0]) for r in rows_a),
+        cpu_run_seconds=cpu_seconds,
+        persistent=dict(steady_tick_ms=statistics.median(steady_p) / k * 1e3,
+                        tuples_per_s=tick * k * len(steady_p) / sum(steady_p),
+                        first_super_batch_s=sec_a[0],
+                        reconfig_super_batch_ms=sec_a[2] * 1e3,
+                        profile=per_tick, graphs=graph_summary(pipe_a)),
+        eager=dict(steady_tick_ms=statistics.median(steady_e) * 1e3,
+                   tuples_per_s=tick * len(steady_e) / sum(steady_e),
+                   profile=eager_prof),
+        sync_free_replays=True, launches=launches)
+
+
+def q3_persistent(dev, k=4):
+    """Q3's fast join path (as ``q3_scalejoin``, without the counting
+    path) through ``run_persistent`` in super-batches of ``k``, the
+    reconfiguration at tick 6 (``reconfig_at`` 2 of the second): equal to
+    the eager card run tick for tick, and to the CPU's persistent loop as
+    unordered pairs, with equal total comparisons.  Ends with the general
+    O+ tick, which the card refuses to capture."""
+    from repro_torch.core import aggregate as agg
+    from repro_torch.core import join
+    from repro_torch.core.controller import (Reconfiguration, active_mask,
+                                             balanced_fmu)
+    from repro_torch.core.runtime import GraphCaptureError, VSNPipeline
+    from repro_torch.core.vsn import merge_fast_state
+    from repro_torch.core.windows import WindowSpec
+    from repro_torch.data import datagen
+    from repro_torch.kernels import dispatch
+
+    K, RING, TICK, N_TICKS, RC_AT, P = 512, 16, 256, 12, 6, 4
+    dev = torch.device(dev)
+    ws = WindowSpec(wa=1, ws=300_000, wt="single")
+    fj = join.band_predicate(10.0, 2)
+    op = join.scalejoin_def(ws, K, fj, payload_width=P, ring=RING,
+                            out_cap=1024)
+    batches = list(datagen.scalejoin(np.random.default_rng(3),
+                                     n_ticks=N_TICKS, tick=TICK, k_virt=1,
+                                     rate_t_per_s=2000.0, device="cpu"))
+    rc = Reconfiguration(epoch=1, n_active=4, fmu=balanced_fmu(K, 4, 4),
+                         active=active_mask(4, 4))
+
+    def pipeline(device):
+        comps = torch.zeros((), dtype=torch.float32, device=device)
+
+        def join_tick(op_, st, ready, resp, explicit_w=None):
+            st, outs = join.tick_fast(ws, fj, st, ready, resp, out_cap=1024)
+            comps.add_(st.comparisons)
+            return st, outs
+
+        pipe = VSNPipeline(op, n_max=4, n_active=2, stash_cap=128,
+                           tick_fn=join_tick, merge_fn=merge_fast_state,
+                           init_sigma=lambda d: join.fast_join_init(K, RING,
+                                                                    P, d),
+                           device=device)
+        return pipe, comps
+
+    def pairs(rows):
+        """Per tick: outputs as sorted unordered pairs, the switch flag."""
+        out = []
+        for outs, sw, _ in rows:
+            half = len(outs[0][1]) // 2 if outs else 0
+            out.append((sorted((tau, tuple(sorted([pay[:half], pay[half:]])))
+                               for tau, pay in outs), sw))
+        return out
+
+    from repro_torch.io.sinks import flatten_outputs
+    eager, e_comps = pipeline(dev)
+    eager_rows = []
+    for i, b in enumerate(batches):
+        o1, o2, sw, load = eager.step_staged(
+            b, reconfig=rc if i == RC_AT else None)
+        eager_rows.append((sorted(flatten_outputs(o1) + flatten_outputs(o2)),
+                           bool(sw), load.tolist()))
+    cpu, c_comps = pipeline("cpu")
+    cpu_rows = persistent_run(cpu, batches, k, rc, RC_AT)[0]
+
+    dispatch.reset_launches()
+    pipe, p_comps = pipeline(dev)
+    rows, _, overflow = persistent_run(pipe, batches, k, rc, RC_AT,
+                                       sync_free=dev.type == "cuda")
+    launches = {n: v.launches for n, v in dispatch.registered().items()}
+    for i, (got, want) in enumerate(zip(rows, eager_rows)):
+        if got != want:
+            raise AssertionError(f"q3_persistent tick {i}: differs from the "
+                                 "eager run")
+    if pairs(rows) != pairs(cpu_rows):
+        raise AssertionError("q3_persistent: pairs differ from the CPU run")
+    total = float(p_comps)
+    assert total == float(e_comps) == float(c_comps), \
+        (total, float(e_comps), float(c_comps))
+    assert sum(r[1] for r in rows) == 1 and overflow == 0
+    out = dict(phase="q3_persistent", ticks=N_TICKS, super_batch=k,
+               reconfig_tick=RC_AT, equal_to_eager=True,
+               equal_to_cpu_as_unordered_pairs=True, comparisons=total,
+               output_pairs=sum(len(r[0]) for r in rows), launches=launches)
+    if dev.type != "cuda":
+        return out
+    assert launches["scalegate_merge"] > 0, launches
+    graphs = pipe.persistent_graphs()
+    assert len(graphs) == 1 and \
+        next(iter(graphs.values()))["replays"] == N_TICKS // k - 1, graphs
+    out["graphs"] = graph_summary(pipe)
+
+    # The general O+ tick reads its expiry condition back to the host, so
+    # its capture fails, and the call raises rather than run eagerly.
+    small = agg.count_aggregate(WindowSpec(wa=10, ws=20, wt="multi"), 16,
+                                out_cap=64)
+    general = VSNPipeline(small, n_max=2, n_active=2, stash_cap=16,
+                          device=dev)
+    ticks = list(datagen.tweets(np.random.default_rng(1), n_ticks=2, tick=4,
+                                words_per_tweet=2, vocab=50, k_virt=16,
+                                rate_per_tick=10, device="cpu"))
+    general.ensure_gate_for(ticks[0].kmax, ticks[0].payload_width)
+    before = general.sg
+    try:
+        general.run_persistent(ticks)
+    except GraphCaptureError as e:
+        out["general_tick_refused"] = str(e)[:300]
+    else:
+        raise AssertionError("the general tick was not refused on the card")
+    assert general.sg is before and not general.persistent_graphs()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: Q1 over the ingest tier (fused root) into AsyncStreamRuntime
 # ---------------------------------------------------------------------------
 
 def q1_ingest_tier(dev, n_ticks=40, tick=2048, join_at=12, leave_at=24):
@@ -1522,12 +1920,14 @@ def q1_ingest_tier(dev, n_ticks=40, tick=2048, join_at=12, leave_at=24):
             self.overflow.append(o1.overflow.sum() + o2.overflow.sum())
 
     def pipeline(device):
-        collisions = []
+        """The pipeline and its ring-overrun total, which the tick function
+        adds into on the device (so a graph replay adds as well)."""
+        collisions = torch.zeros((), dtype=torch.int32, device=device)
 
         def count_tick(op_, st, ready, resp, explicit_w=None):
             st, outs = agg.tick_fast(op_, "count", st, ready, resp,
                                      explicit_w=explicit_w)
-            collisions.append(st.collisions)
+            collisions.add_(st.collisions)
             return st, outs
 
         pipe = VSNPipeline(op, n_max=N_MAX, n_active=4, stash_cap=TICK,
@@ -1575,7 +1975,7 @@ def q1_ingest_tier(dev, n_ticks=40, tick=2048, join_at=12, leave_at=24):
     assert pipe.bytes_transferred == 0
     assert int(pipe.sg.overflow) == 0
     assert int(torch.stack(sink.overflow).sum()) == 0
-    assert int(torch.stack(collisions).sum()) == 0
+    assert int(collisions) == 0
     outs = sink.results()
 
     # (c) the CPU twin: the same tier on the CPU, the card's trace replayed
@@ -1589,6 +1989,47 @@ def q1_ingest_tier(dev, n_ticks=40, tick=2048, join_at=12, leave_at=24):
                              "run")
     assert cpu_rep.switches == rep.switches
     assert cpu_rep.detect_to_switch_ticks == rep.detect_to_switch_ticks
+
+    # (e) the second pass: the same tier into AsyncStreamRuntime with
+    # super_batch 8, the persistent driver (one graph a round shape; a
+    # shape change flushes a group early), against a CPU run_sync that
+    # replays this pass's reconfigurations
+    ctl8 = ThresholdController(n_max=N_MAX, k_virt=K,
+                               capacity_per_instance=2500.0, n_active=4)
+    pipe8, coll8 = pipeline(dev)
+    sink8 = Sink()
+    t3 = tier(dev)
+    dispatch.reset_launches()
+    rt8 = AsyncStreamRuntime(pipe8, t3, sink=sink8, controller=ctl8,
+                             queue_cap=4, super_batch=8)
+    rep8 = rt8.run()
+    sync()
+    launches8 = {k: v.launches for k, v in dispatch.registered().items()}
+    if dev.type == "cuda":
+        assert launches8["scalegate_merge_stacked"] == t3.root.rounds, \
+            (launches8, t3.root.rounds)
+        assert launches8["scalegate_merge"] > 0 and \
+            launches8["segment_aggregate"] > 0, launches8
+    assert pipe8.bytes_transferred == 0 and int(pipe8.sg.overflow) == 0
+    assert int(torch.stack(sink8.overflow).sum()) == 0 and int(coll8) == 0
+    cpu8, _ = pipeline("cpu")
+    cpu_rep8, cpu_sink8 = run_sync(cpu8, tier("cpu"),
+                                   reconfig_trace=rep8.reconfig_trace)
+    if cpu_sink8.results() != sink8.results():
+        raise AssertionError("q1_ingest_tier (super_batch 8): outputs differ "
+                             "from the CPU run")
+    assert cpu_rep8.switches == rep8.switches
+    graphs8 = pipe8.persistent_graphs()
+    super_batch = dict(
+        super_batch=8, dispatches=rep8.ticks, outputs=len(sink8.results()),
+        tuples_per_s=rep8.throughput_tps, p50_ms=rep8.p50_ms,
+        p99_ms=rep8.p99_ms, wall_s=rep8.wall_s,
+        reconfigs=[(tk, int(rc.n_active)) for tk, rc in rep8.reconfig_trace],
+        switches=rep8.switches, graphs=len(graphs8),
+        shapes=["x".join(map(str, key)) for key in graphs8],
+        replays=sum(g["replays"] for g in graphs8.values()),
+        capture_s=[g["capture_s"] for g in graphs8.values()],
+        equal_to_cpu=True)
 
     # (d) where a round's time goes: the 4 rounds after the leave, tier
     # and pipeline stepped in this thread under torch.profiler
@@ -1621,11 +2062,12 @@ def q1_ingest_tier(dev, n_ticks=40, tick=2048, join_at=12, leave_at=24):
                      detect_to_switch_ticks=rep.detect_to_switch_ticks),
         equal_to_cpu=True, cpu_run_seconds=cpu_seconds,
         vsn_sigma_bytes_moved=pipe.bytes_transferred, profile=profile,
-        launches=launches)
+        super_batch_pass=super_batch,
+        launches={k: launches[k] + launches8[k] for k in launches})
 
 
 # ---------------------------------------------------------------------------
-# phases 6-7: the elastic serving tier at full width (qwen3-14b, rwkv6-7b)
+# phases 8-9: the elastic serving tier at full width (qwen3-14b, rwkv6-7b)
 # ---------------------------------------------------------------------------
 
 SERVE_KERNEL = {"dense": "flash_attention", "rwkv": "linear_scan"}
@@ -1872,7 +2314,8 @@ def main(argv) -> int:
     # The main path: each pipeline phase zeroes the counts right before its
     # card run and reads them right after it.
     phases = []
-    for run in (q1_wordcount, q3_scalejoin, q1_ingest_tier,
+    for run in (q1_wordcount, q3_scalejoin, q1_persistent, q3_persistent,
+                q1_ingest_tier,
                 functools.partial(serve_full_width, arch="qwen3-14b"),
                 functools.partial(serve_full_width, arch="rwkv6-7b")):
         phases.append(run(dev))

@@ -11,12 +11,13 @@ is the one constructor:
 
 The config is JSON-serializable.  ``device`` says where the pipeline and
 the ingest tier run (None: the card); the serving engine runs there too
-unless ``ServingConfig.device`` names another device.  Not ported yet, and refused by
-``build_runtime``: checkpointing (``checkpoint_dir``; with it
-``resume_runtime``), the device mesh (``mesh_devices``) and the
-persistent super-batch loop (``super_batch > 1``, refused by the
-runtime).  The reference's ``backend`` switch has no counterpart: the
-port picks a kernel by the data's device.
+unless ``ServingConfig.device`` names another device.  ``super_batch > 1``
+runs the pipeline's persistent K-tick driver (a CUDA graph per
+super-batch shape on the card, which refuses a tick function that cannot
+be captured).  Not ported yet, and refused by ``build_runtime``:
+checkpointing (``checkpoint_dir``; with it ``resume_runtime``) and the
+device mesh (``mesh_devices``).  The reference's ``backend`` switch has
+no counterpart: the port picks a kernel by the data's device.
 """
 
 from __future__ import annotations
@@ -122,7 +123,7 @@ def make_pipeline(cfg: RuntimeConfig):
     if cfg.mesh_devices:
         raise NotImplementedError(
             "mesh_devices: MeshPipeline is not ported yet (ROADMAP.md "
-            "queue 1 item 14)")
+            "queue 1 item 8)")
     from repro_torch.core.runtime import VSNPipeline
     return VSNPipeline(make_op(cfg), n_max=cfg.n_max, n_active=cfg.n_active,
                        stash_cap=cfg.stash_cap, device=cfg.device)
@@ -196,7 +197,7 @@ def build_runtime(cfg: RuntimeConfig, source, *, pipeline=None, sink=None,
     if cfg.checkpoint_dir or cfg.checkpoint_every:
         raise NotImplementedError(
             "checkpoint_dir/checkpoint_every: checkpointing (and "
-            "resume_runtime) is not ported yet (ROADMAP.md queue 1 item 11)")
+            "resume_runtime) is not ported yet (ROADMAP.md queue 1 item 4)")
     # observability first: the layers built below record into the global
     # Obs from their constructors onward.  Only install when the config
     # asks for it — callers that installed an Obs themselves keep theirs.

@@ -10,7 +10,11 @@ at once instead of scanning tuple by tuple; count and sum go through the
 ``segment_aggregate`` kernel, max through a scatter-max.  Both are
 out-of-place, as in the reference: every VSN instance of a tick starts
 from the same shared ``acc``, and each gets a new accumulator back, so no
-instance's adds reach another's input.
+instance's adds reach another's input.  What does not depend on the
+instance (the hits, the frontier, the slot table, the expiry's plan) is
+computed once for the instances of a tick (``operator.shared``), and the
+expiry reads nothing back to the host (``operator.expire_closed``), so
+the tick can be captured in a CUDA graph.
 
 Departures from the reference, both deterministic where it is not: the
 window-generation table ``slot_l`` is written by in-range lanes only (the
@@ -32,8 +36,8 @@ import torch
 from repro_torch import device as _device
 from repro_torch.core import tuples as T
 from repro_torch.core.operator import (UNSET_L, OperatorDef, OpState, Outputs,
-                                       _empty_outputs, _expire_all,
-                                       advance_explicit)
+                                       advance_explicit, expire_closed,
+                                       expiry_plan, shared)
 from repro_torch.core.windows import MULTI, SINGLE, WindowSpec
 from repro_torch.kernels.segment_aggregate.ops import segment_aggregate_op
 
@@ -118,73 +122,71 @@ def fast_init(op: OperatorDef, device=None) -> FastAggState:
         collisions=torch.zeros((), dtype=torch.int32, device=dev))
 
 
-def _scatter_reduce(op: OperatorDef, kind: str, acc: torch.Tensor,
-                    ready: T.TupleBatch, resp: torch.Tensor, next_l):
-    """Scatter the whole tick into (key, slot) cells.
-
-    A key repeated inside one tuple's key set contributes once (Definition
-    4: ``f_MK`` returns a set).  Returns the new accumulator and the hit
-    vectors ``(k, s, l, m, m_any)``: ``m`` marks hits this instance
-    applies, ``m_any`` lanes in window range irrespective of key and
-    ``resp`` (the slot-grid bookkeeping mask).
-    """
+def _hits(op: OperatorDef, kind: str, ready: T.TupleBatch, next_l):
+    """The tick's (key, slot) hits, independent of the instance: ``(k, s,
+    l, m_pre, m_any, val)``, one row per (window generation d, key column,
+    lane), in that order.  ``m_pre`` marks live in-range hits of a key in
+    ``[0, K)`` seen first in its tuple's key set (Definition 4: ``f_MK``
+    returns a set); ``m_any`` the lanes in window range irrespective of key
+    (the slot-grid bookkeeping mask); ``val`` the value each row adds."""
     ws = op.window
+    dev = ready.device
     live = ready.valid & ~ready.is_control
     l_min = torch.maximum(ws.earliest_win_l(ready.tau), next_l)
-    l_max = ws.latest_win_l(ready.tau)
-    if ws.wt == SINGLE:
-        l_max = l_min
-    dup_cols = []
-    for kk in range(ready.kmax):
-        dup = torch.zeros((ready.batch,), dtype=torch.bool, device=acc.device)
-        for kk2 in range(kk):
-            dup = dup | (ready.keys[:, kk2] == ready.keys[:, kk])
-        dup_cols.append(dup)
-    hits_l, hits_k, hits_m, hits_any = [], [], [], []
-    for d in range(ws.n_slots if ws.wt == MULTI else 1):
-        l = l_min + d
-        in_range = (l <= l_max) & live
-        for kk in range(ready.kmax):
-            key = ready.keys[:, kk]
-            in_block = (key >= 0) & (key < op.k_virt) & ~dup_cols[kk]
-            k_safe = key.clamp(0, op.k_virt - 1)
-            hits_l.append(l)
-            hits_k.append(k_safe)
-            hits_m.append(in_range & in_block & resp[k_safe.long()])
-            hits_any.append(in_range)
-    l = torch.cat(hits_l)
-    k = torch.cat(hits_k)
-    m = torch.cat(hits_m)
-    m_any = torch.cat(hits_any)
-    s = op.slot_of(l)
-    reps = l.shape[0] // ready.batch
+    l_max = l_min if ws.wt == SINGLE else ws.latest_win_l(ready.tau)
+    n_d = ws.n_slots if ws.wt == MULTI else 1
+    keys = ready.keys.t()                                    # [KMAX, B]
+    earlier = torch.ones((ready.kmax, ready.kmax), dtype=torch.bool,
+                         device=dev).tril(-1)[:, :, None]
+    dup = ((keys[:, None] == keys[None]) & earlier).any(dim=1)
+    in_block = (keys >= 0) & (keys < op.k_virt) & ~dup
+    l = l_min + torch.arange(n_d, dtype=torch.int32, device=dev)[:, None]
+    in_range = (l <= l_max) & live                           # [D, B]
+    shape = (n_d, ready.kmax, ready.batch)
+    l = l[:, None].expand(shape).reshape(-1)
+    k = keys.clamp(0, op.k_virt - 1)[None].expand(shape).reshape(-1)
+    m_pre = (in_range[:, None] & in_block[None]).reshape(-1)
+    m_any = in_range[:, None].expand(shape).reshape(-1)
+    reps = n_d * ready.kmax
+    if kind == "count":
+        val = torch.ones((l.shape[0], 1), dtype=torch.float32, device=dev)
+    elif kind == "max":
+        val = ready.payload[:, :1].repeat(reps, 1)
+    else:  # "sum"
+        val = ready.payload.repeat(reps, 1)
+    return k, op.slot_of(l), l, m_pre, m_any, val
+
+
+def _apply_hits(kind: str, acc: torch.Tensor, k, s, m, val) -> torch.Tensor:
+    """``acc`` plus the hits ``m`` selects (a new accumulator): count and
+    sum through the ``segment_aggregate`` kernel, max through a
+    scatter-max."""
     if kind == "max":
         k_s, w = acc.shape[0] * acc.shape[1], acc.shape[2]
-        val = ready.payload[:, :1].repeat(reps, 1)
         val = torch.where(m[:, None], val, -torch.inf).expand(-1, w)
         flat = (k.long() * acc.shape[1] + s.long())[:, None].expand(-1, w)
-        acc = acc.reshape(k_s, w).scatter_reduce(
+        return acc.reshape(k_s, w).scatter_reduce(
             0, flat, val, reduce="amax").reshape(acc.shape)
-    else:
-        if kind == "count":
-            val = torch.ones((l.shape[0], 1), dtype=torch.float32,
-                             device=acc.device)
-        else:  # "sum"
-            val = ready.payload[:, :acc.shape[-1]].repeat(reps, 1)
-        acc = segment_aggregate_op(
-            torch.where(m, k, -1), s, torch.where(m[:, None], val, 0.0), acc)
-    return acc, k, s, l, m, m_any
+    return segment_aggregate_op(torch.where(m, k, -1), s,
+                                torch.where(m[:, None], val[:, :acc.shape[-1]],
+                                            0.0), acc)
 
 
-def tick_fast(op: OperatorDef, kind: str, st: FastAggState,
-              ready: T.TupleBatch, resp: torch.Tensor, *,
-              explicit_w=None) -> Tuple[FastAggState, Outputs]:
-    """Whole-tick scatter update, then expiry (order-free for commutative f_R).
+def _scatter_reduce(op: OperatorDef, kind: str, acc: torch.Tensor,
+                    ready: T.TupleBatch, resp: torch.Tensor, next_l):
+    """Scatter the whole tick into (key, slot) cells for the instance whose
+    responsibility mask is ``resp``.  Returns the new accumulator and the
+    hit vectors ``(k, s, l, m, m_any)``: ``m`` marks the hits this instance
+    applies (see ``_hits``)."""
+    k, s, l, m_pre, m_any, val = _hits(op, kind, ready, next_l)
+    m = m_pre & resp[k.long()]
+    return _apply_hits(kind, acc, k, s, m, val), k, s, l, m, m_any
 
-    ``explicit_w`` (SN only) is the end-of-tick watermark broadcast to every
-    instance whatever was routed to it (see ``operator.advance_explicit``).
-    """
-    op = op.resolved()
+
+def _plan(op: OperatorDef, kind: str, st: FastAggState, ready: T.TupleBatch):
+    """Everything of a fast tick that does not depend on the instance: the
+    first-contact frontier, the watermark, the hits, the ring-overrun
+    count, the slot table and the expiry's plan."""
     ops = st.op_state
     dev = ready.device
     live = ready.valid & ~ready.is_control
@@ -194,38 +196,54 @@ def tick_fast(op: OperatorDef, kind: str, st: FastAggState,
     first_tau = torch.where(live, ready.tau, INT32_MAX).min()
     next_l = torch.where((ops.next_l == UNSET_L) & any_live,
                          op.window.earliest_win_l(first_tau), ops.next_l)
-    ops = dataclasses.replace(ops, next_l=next_l)
-
-    acc, k_idx, s_idx, l_idx, m_idx, m_any = _scatter_reduce(
-        op, kind, ops.zeta["acc"], ready, resp, ops.next_l)
+    k, s, l, m_pre, m_any, val = _hits(op, kind, ready, next_l)
 
     # Ring overrun: the live window generations spanned by this tick must
     # fit the slot ring, else two generations alias one slot (counted).
     latest = torch.where(live, op.window.latest_win_l(ready.tau),
-                         ops.next_l).max()
-    span = latest - ops.next_l + 1
-    coll = (span - op.slots).clamp(min=0) * any_live.to(torch.int32)
-
-    flat = k_idx.long() * op.slots + s_idx.long()
-    occ = ops.occupied.reshape(-1).to(torch.int32).scatter_reduce(
-        0, flat, m_idx.to(torch.int32), reduce="amax")
-    occ = occ.reshape(ops.occupied.shape) > 0
-
-    s_long = s_idx.long()
+                         next_l).max()
+    coll = (latest - next_l + 1 - op.slots).clamp(min=0) * any_live.to(
+        torch.int32)
+    s_long = s.long()
     hit_l = torch.full((op.slots,), INT32_MIN, dtype=torch.int32, device=dev)
-    hit_l = hit_l.scatter_reduce(0, s_long, torch.where(m_any, l_idx,
-                                                        INT32_MIN),
+    hit_l = hit_l.scatter_reduce(0, s_long, torch.where(m_any, l, INT32_MIN),
                                  reduce="amax")
     has = torch.zeros((op.slots,), dtype=torch.int32, device=dev)
     has = has.scatter_reduce(0, s_long, m_any.to(torch.int32), reduce="amax")
     slot_l = torch.where(has > 0, hit_l, st.slot_l)
+    key_ids = torch.arange(op.k_virt, dtype=torch.int32, device=dev)
+    return dict(next_l=next_l, w_end=w_end, k=k, k_long=k.long(), s=s,
+                m_pre=m_pre, val=val, flat=k.long() * op.slots + s_long,
+                coll=coll, slot_l=slot_l, key_ids=key_ids,
+                expiry=expiry_plan(op, next_l, w_end, key_ids))
 
-    ops = dataclasses.replace(ops, zeta={"acc": acc}, occupied=occ,
-                              watermark=w_end)
-    outs = _empty_outputs(op.out_cap, op.payload_out, dev)
-    ops, outs = _expire_all(op, ops, outs, w_end, resp,
-                            torch.arange(op.k_virt, dtype=torch.int32,
-                                         device=dev))
+
+def tick_fast(op: OperatorDef, kind: str, st: FastAggState,
+              ready: T.TupleBatch, resp: torch.Tensor, *,
+              explicit_w=None) -> Tuple[FastAggState, Outputs]:
+    """Whole-tick scatter update, then expiry (order-free for commutative f_R).
+
+    The part that does not depend on ``resp`` is computed once for all the
+    VSN instances of a tick (``operator.shared``); each instance then
+    applies its hits and expires its keys.  ``explicit_w`` (SN only) is the
+    end-of-tick watermark broadcast to every instance whatever was routed
+    to it (see ``operator.advance_explicit``).
+    """
+    plan = shared((tick_fast, op, kind, st, ready),
+                  lambda: _plan(op.resolved(), kind, st, ready))
+    op = op.resolved()
+    ops = st.op_state
+    m = plan["m_pre"] & resp[plan["k_long"]]
+    acc = _apply_hits(kind, ops.zeta["acc"], plan["k"], plan["s"], m,
+                      plan["val"])
+    occ = ops.occupied.reshape(-1).to(torch.int32).scatter_reduce(
+        0, plan["flat"], m.to(torch.int32), reduce="amax")
+    ops = dataclasses.replace(ops, zeta={"acc": acc},
+                              occupied=occ.reshape(ops.occupied.shape) > 0,
+                              watermark=plan["w_end"], next_l=plan["next_l"])
+    ops, outs = expire_closed(op, ops, plan["w_end"], resp, plan["key_ids"],
+                              plan["expiry"])
     if explicit_w is not None:
         ops, outs = advance_explicit(op, ops, outs, explicit_w, resp)
-    return FastAggState(op_state=ops, slot_l=slot_l, collisions=coll), outs
+    return FastAggState(op_state=ops, slot_l=plan["slot_l"],
+                        collisions=plan["coll"]), outs

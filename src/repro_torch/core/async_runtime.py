@@ -21,12 +21,19 @@ stream live:
   from the host-tracked per-source frontier.  Detection→switch latency is
   measured per reconfiguration.
 
+With ``super_batch = K > 1`` the ingest thread groups K consecutive
+same-shape ticks into one ``StagedSuper`` (a shape change flushes the
+group early; a partial group is padded with all-invalid ticks) and the
+step loop runs each through the pipeline's persistent driver
+(``run_persistent_staged``): one controller decision a super-batch, a
+reconfiguration injected at its first tick, and one control-lane read
+(``switched.any()``, ``inst_load.sum(0)``) a super-batch.
+
 ``run_sync`` is the measured baseline: the same semantics as a plain host
 loop (generate, step, wait for the outputs).
 
-Left out of this port so far: ``super_batch > 1`` (the persistent K-tick
-driver ``run_persistent_staged``), and the checkpointer hook with the
-resumed run's tick offset.
+Left out of this port so far: the checkpointer hook with the resumed
+run's tick offset.
 """
 
 from __future__ import annotations
@@ -61,6 +68,17 @@ class TickMeta:
 class StagedTick:
     meta: TickMeta
     staged: T.TupleBatch           # on the pipeline's device
+
+
+@dataclasses.dataclass
+class StagedSuper:
+    """K consecutive same-shape ticks staged as one ``[K, B]`` super-batch
+    for the pipeline's persistent driver.  The last ``n_pad`` ticks are
+    all-invalid fillers (a partial tail, or an early flush on a shape
+    change, keeps one K)."""
+    metas: List[TickMeta]          # one per real tick, in order
+    stack: T.TupleBatch            # on the pipeline's device
+    n_pad: int
 
 
 @dataclasses.dataclass
@@ -177,11 +195,9 @@ class AsyncStreamRuntime:
     def __init__(self, pipeline, source, sink=None, controller=None,
                  queue_cap: int = 4, metrics: Optional[MetricsBus] = None,
                  super_batch: int = 1):
-        if super_batch != 1:
-            raise NotImplementedError(
-                "super_batch > 1 needs VSNPipeline.run_persistent_staged, "
-                "which the port does not have yet (ROADMAP.md, open item "
-                "'run_persistent')")
+        if super_batch < 1:
+            raise ValueError(f"super_batch must be >= 1, got {super_batch}")
+        self.super_batch = super_batch
         self.pipeline = pipeline
         self.source = source
         self.sink = sink if sink is not None else CollectSink()
@@ -212,6 +228,10 @@ class AsyncStreamRuntime:
         with_hist = not getattr(self.pipeline, "device_inst_load", False)
         frontier = _initial_frontier(self.pipeline, n_inputs)
         try:
+            if self.super_batch > 1:
+                self._ingest_super(max_ticks, n_inputs, k_virt, with_hist,
+                                   frontier)
+                return
             for i, b in enumerate(self.source):
                 if max_ticks is not None and i >= max_ticks:
                     break
@@ -230,6 +250,65 @@ class AsyncStreamRuntime:
             _obs.event("ingest_error", error=repr(e))
         finally:
             self.queue.close()
+
+    def _ingest_super(self, max_ticks, n_inputs: int, k_virt: int,
+                      with_hist: bool, frontier: np.ndarray):
+        """Group up to ``super_batch`` consecutive same-shape ticks and
+        stage each group as one stack.  A shape change flushes the open
+        group early; a partial group is padded with all-invalid ticks, so
+        each shape keeps one K (one graph on the card)."""
+        k = self.super_batch
+        group: List[T.TupleBatch] = []
+        metas: List[TickMeta] = []
+        gkey = None
+
+        def flush():
+            nonlocal group, metas
+            if not group:
+                return
+            n_pad = k - len(group)
+            b0 = group[0]
+            with _obs.span("ingest.stage"):
+                ticks = group + [T.empty_batch(b0.batch, b0.kmax,
+                                               b0.payload_width,
+                                               b0.device)] * n_pad
+                stack = self.pipeline.stage_super(ticks)
+            self.queue.put(StagedSuper(metas=metas, stack=stack,
+                                       n_pad=n_pad))
+            group, metas = [], []
+
+        for i, b in enumerate(self.source):
+            if max_ticks is not None and i >= max_ticks:
+                break
+            key = (b.batch, b.kmax, b.payload_width)
+            if group and key != gkey:
+                flush()
+            gkey = key
+            metas.append(tick_meta(b, i, n_inputs, k_virt, frontier,
+                                   with_hist=with_hist))
+            tl = _obs.exemplars()
+            if tl is not None:
+                ok = _np(b.valid) & ~_np(b.is_control)
+                # bound to the super-batch's decision tick (its first
+                # tick id), the id _drain sees
+                tl.scan(_np(b.source), _np(b.tau), ok, "stage",
+                        tick_id=metas[0].tick_id)
+            group.append(b)
+            if len(group) == k:
+                flush()
+        flush()
+
+    @staticmethod
+    def _combine_meta(metas: List[TickMeta]) -> TickMeta:
+        """One decision's view of a super-batch: tuple counts and key
+        histograms sum; the frontier stamp is the one before the first
+        tick (where a reconfiguration is injected)."""
+        hist = (None if metas[0].key_hist is None
+                else np.sum([m.key_hist for m in metas], axis=0))
+        return TickMeta(tick_id=metas[0].tick_id,
+                        n_tuples=sum(m.n_tuples for m in metas),
+                        frontier_before=metas[0].frontier_before,
+                        key_hist=hist)
 
     # -- metric sampling ----------------------------------------------------
     def _host_inst_load(self, key_hist) -> Optional[np.ndarray]:
@@ -313,13 +392,24 @@ class AsyncStreamRuntime:
                 except QueueClosed:     # ingest done and every tick drained
                     break
                 idle_s = time.perf_counter() - t_wait
-                meta = item.meta
+                sup = isinstance(item, StagedSuper)
+                meta = self._combine_meta(item.metas) if sup else item.meta
                 rc = self._decide(meta)
                 t0 = time.perf_counter()
                 with _obs.span("runtime.dispatch"):
-                    o1, o2, switched, inst_load = self.pipeline.step_staged(
-                        item.staged, reconfig=rc,
-                        frontier=meta.frontier_before)
+                    if sup:
+                        out = self.pipeline.run_persistent_staged(
+                            item.stack, reconfig=rc, reconfig_at=0,
+                            frontier=meta.frontier_before)
+                        o1, o2 = out.outs_pre, out.outs_post
+                        switched = out.switched.any()
+                        inst_load = (None if out.inst_load is None
+                                     else out.inst_load.sum(dim=0))
+                    else:
+                        o1, o2, switched, inst_load = \
+                            self.pipeline.step_staged(
+                                item.staged, reconfig=rc,
+                                frontier=meta.frontier_before)
                 tl = _obs.exemplars()
                 if tl is not None:
                     tl.mark_tick(meta.tick_id, "dispatch")

@@ -22,8 +22,9 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.core import tuples as T
-from repro_torch.core.operator import (OperatorDef, Outputs, Tup, _emit,
-                                       _empty_outputs, _put)
+from repro_torch.core.operator import (OperatorDef, Outputs, Tup,
+                                       _empty_outputs, _put, compact,
+                                       compacted_outputs)
 from repro_torch.core.watermark import INF_TIME
 from repro_torch.core.windows import SINGLE, WindowSpec
 from repro_torch.kernels.window_join.ops import window_join_op
@@ -162,7 +163,9 @@ def tick_fast(window: WindowSpec, f_j: Callable, st: FastJoinState,
     ``st`` holds all K rows and ``resp`` masks this instance's rows.
     Requires ``ready.batch <= K`` (one store row per tuple per tick).
     Outputs are appended in the reference's order: phase-1 hits by
-    ``(b, k, r)``, then phase-2 hits by ``(later, earlier)``.
+    ``(b, k, r)``, then phase-2 hits by ``(later, earlier)``, through one
+    fixed-size emission (``operator.compact``): no shape depends on the
+    data and nothing is read back to the host.
     """
     k_virt, ring = st.tau.shape
     b = ready.batch
@@ -202,17 +205,21 @@ def tick_fast(window: WindowSpec, f_j: Callable, st: FastJoinState,
         hit2 = pair & within & _directed(f_j, ready.payload[:, None, :],
                                          ready.source[:, None],
                                          ready.payload[None])
-        idx = hit1.reshape(-1).nonzero().squeeze(1)
-        bi, rest = idx // (k_virt * ring), idx % (k_virt * ring)
-        ki, ri = rest // ring, rest % ring
-        pay1 = torch.cat([ready.payload[bi], st.pay[ki, ri]], dim=-1)
-        outs = _emit(outs, ready.tau[bi] + window.wa, pay1,
-                     torch.ones_like(idx, dtype=torch.bool))
-        idx = hit2.reshape(-1).nonzero().squeeze(1)
-        i2, j2 = idx // b, idx % b
-        pay2 = torch.cat([ready.payload[i2], ready.payload[j2]], dim=-1)
-        outs = _emit(outs, ready.tau[i2] + window.wa, pay2,
-                     torch.ones_like(idx, dtype=torch.bool))
+        # one fixed-size emission over both phases' hit masks, in row
+        # order: (b, k, r) of phase 1, then (i, j) of phase 2
+        n1 = b * k_virt * ring
+        rows, ok, n = compact(torch.cat([hit1.reshape(-1), hit2.reshape(-1)]),
+                              out_cap)
+        first = rows < n1
+        r1 = rows.clamp(max=n1 - 1)
+        ki, ri = r1 // ring % k_virt, r1 % ring
+        r2 = (rows - n1).clamp(min=0)
+        left = torch.where(first, r1 // (k_virt * ring), r2 // b)
+        right = torch.where(first[:, None], st.pay[ki, ri],
+                            ready.payload[r2 % b])
+        outs = compacted_outputs(
+            out_cap, ok, n, ready.tau[left] + window.wa,
+            torch.cat([ready.payload[left], right], dim=-1))
 
     # --- phase 3: store (round-robin, one key per tuple) -------------------
     # Non-live lanes go to one past the end, which _put and index_add drop.

@@ -14,10 +14,12 @@ and one scalar ``next_l``, the earliest non-expired window index.
 
 ``tick`` processes a ready batch one tuple at a time, in a Python loop over
 the lanes (the reference's ``lax.scan``): it is the semantic oracle, run in
-the CPU tests at small sizes and by ``SNPipeline``'s default tick.  The
+the CPU tests at small sizes and by ``SNPipeline``'s default tick.  Its
 expiry loop (``_expire_all``) is a Python ``while`` that reads ``next_l``
-back to the host once per round: one host sync per expiry round, on every
-path that expires windows, the card's included.
+back to the host once per round.  ``expire_closed`` is the same expiry
+with no host read, for the whole-tick fast paths: every closed generation
+is expired in one vectorised pass over the slot ring, and ``compact``
+writes the emitted rows into a fixed-size output buffer.
 
 State updates are out of place: one state is the input of every VSN
 instance of a tick, so no instance may write into it.
@@ -25,7 +27,9 @@ instance of a tick, so no instance may write into it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Any, Callable, Tuple
 
 import torch
@@ -63,6 +67,37 @@ class Outputs:
     valid: torch.Tensor     # bool[cap]
     count: torch.Tensor     # i32[] number of valid lanes
     overflow: torch.Tensor  # i32[] outputs dropped (buffer too small)
+
+
+_SHARED = threading.local()
+
+
+@contextlib.contextmanager
+def instances_share():
+    """Inside this block ``shared`` builds each value once.  The VSN
+    instances of one tick hand their tick function the same state and the
+    same ready batch; the work that does not depend on an instance's
+    responsibility mask is then the same for all of them, and is done once
+    (the reference's ``vmap`` computes it once as well)."""
+    prev = getattr(_SHARED, "memo", None)
+    _SHARED.memo = {}
+    try:
+        yield
+    finally:
+        _SHARED.memo = prev
+
+
+def shared(key: tuple, build: Callable):
+    """``build()``, or inside ``instances_share`` the value already built
+    for the same ``key`` objects (compared by identity)."""
+    memo = getattr(_SHARED, "memo", None)
+    if memo is None:
+        return build()
+    ids = tuple(id(x) for x in key)
+    hit = memo.get(ids)
+    if hit is None or any(a is not b for a, b in zip(hit[0], key)):
+        hit = memo[ids] = (key, build())
+    return hit[1]
 
 
 def _empty_outputs(cap: int, p: int, device) -> Outputs:
@@ -238,6 +273,95 @@ def _expire_round(op: OperatorDef, st: OpState, outs: Outputs,
         occupied = _set_col(st.occupied, s, False)
     return dataclasses.replace(st, zeta=zeta, occupied=occupied,
                                next_l=st.next_l + 1), outs
+
+
+def compact(valid: torch.Tensor, cap: int):
+    """The first ``cap`` rows of ``valid`` that are set, in row order, with
+    no host read: ``(rows, ok, n)``, where ``rows`` (int64[cap]) is each
+    output lane's row (0 on a lane past the last set row), ``ok`` marks the
+    lanes in use and ``n`` (int32[]) counts every set row."""
+    idx = torch.nonzero_static(valid, size=cap, fill_value=-1).squeeze(1)
+    ok = idx >= 0
+    return idx.clamp(min=0), ok, valid.sum(dtype=torch.int32)
+
+
+def compacted_outputs(cap: int, ok: torch.Tensor, n: torch.Tensor,
+                      tau: torch.Tensor, payload: torch.Tensor) -> Outputs:
+    """A fresh output buffer holding ``compact``'s lanes: what ``_emit``
+    into an empty buffer gives for the same rows (the lanes past the count
+    zero, rows past ``cap`` dropped and counted)."""
+    return Outputs(
+        tau=torch.where(ok, tau, 0),
+        payload=torch.where(ok[:, None], payload.to(torch.float32), 0.0),
+        valid=ok, count=n.clamp(max=cap), overflow=(n - cap).clamp(min=0))
+
+
+def expiry_plan(op: OperatorDef, n0, w, key_ids: torch.Tensor) -> dict:
+    """The part of ``expire_closed`` that depends only on the frontier
+    ``n0`` (= ``next_l``) and the watermark ``w``: which generations close,
+    their slots, their output taus, and the slots they empty."""
+    ws = op.window
+    n_s = op.slots
+    k = key_ids.shape[0]
+    next_l = torch.where(n0 == UNSET_L, n0,
+                         torch.maximum(n0, ws.earliest_win_l(w)))
+    n_closed = next_l - n0
+    d = torch.arange(n_s, dtype=torch.int32, device=key_ids.device)
+    l = n0 + d                                     # generation n0 + d ...
+    ring = (d - n0) % n_s                          # ... slot s holds n0 + ring[s]
+    return dict(next_l=next_l, closes=d < n_closed, s_d=(l % n_s).long(),
+                l_rows=l.repeat_interleave(k), key_rows=key_ids.repeat(n_s),
+                tau_rows=ws.right_of(l).repeat_interleave(k),
+                gone=ring < n_closed, gen=n0 + ring)
+
+
+def expire_closed(op: OperatorDef, st: OpState, w, resp: torch.Tensor,
+                  key_ids: torch.Tensor, plan: dict = None
+                  ) -> Tuple[OpState, Outputs]:
+    """``_expire_all`` into an empty buffer, with no host read.
+
+    The generations ``next_l .. e - 1`` close, where ``e =
+    earliest_win_l(w)``.  The ring holds ``op.slots`` consecutive
+    generations, one a slot, so the first ``op.slots`` of them are the
+    ones that can emit: each is emptied at its round (a recycled slot under
+    WT=multi; under WT=single ``f_s``, which for the fast path's aggregates
+    clears the slot), and a later round on the same slot finds it
+    unoccupied.  Their rounds run as one pass over the ring in window order
+    (rows ``(d, k)`` for generation ``next_l + d`` and key ``k``, the
+    loop's emission order), and ``next_l`` moves to ``max(next_l, e)`` at
+    once.  ``plan`` is ``expiry_plan(op, st.next_l, w, key_ids)``, shared
+    by the instances of a tick.
+    """
+    if plan is None:
+        plan = expiry_plan(op, st.next_l, w, key_ids)
+    ws = op.window
+    n_s = op.slots
+    k = key_ids.shape[0]
+    s_d = plan["s_d"]
+    zeta_d = {name: a.transpose(0, 1)[s_d].reshape((n_s * k,) + a.shape[2:])
+              for name, a in st.zeta.items()}
+    payload, f_valid = op.f_o(zeta_d, plan["l_rows"], plan["key_rows"])
+    emit = (st.occupied.t()[s_d] & resp & plan["closes"][:, None])
+    rows, ok, n = compact(emit.reshape(-1) & f_valid, op.out_cap)
+    outs = compacted_outputs(op.out_cap, ok, n, plan["tau_rows"][rows],
+                             payload[rows])
+
+    gone = plan["gone"]                            # emptied slots
+    if ws.wt == SINGLE:
+        flat = {name: a.reshape((k * n_s,) + a.shape[2:])
+                for name, a in st.zeta.items()}
+        new, still = op.f_s(flat, ws.left_of(plan["gen"] + 1).repeat(k))
+        new = {name: a.reshape(st.zeta[name].shape) for name, a in new.items()}
+        occupied = torch.where(gone, still.reshape(k, n_s) & st.occupied,
+                               st.occupied)
+    else:
+        new = op.init_zeta(resp.device)
+        occupied = st.occupied & ~gone
+    zeta = {name: torch.where(
+        gone.reshape((1, n_s) + (1,) * (a.ndim - 2)), new[name], a)
+        for name, a in st.zeta.items()}
+    return dataclasses.replace(st, zeta=zeta, occupied=occupied,
+                               next_l=plan["next_l"]), outs
 
 
 def _expire_all(op: OperatorDef, st: OpState, outs: Outputs, w,

@@ -13,15 +13,31 @@ instances of which ``n_active`` are connected.  Each ``step``:
 
 ``VSNPipeline`` shares sigma; ``SNPipeline`` keeps dedicated ``sigma_j`` and
 pays duplication and state transfer.  Both run on ``device`` (default: the
-CUDA device; ``"cpu"`` only when asked).  The reference's persistent K-tick
-scan (``run_persistent``) and ``MeshPipeline`` come with later slices.
+CUDA device; ``"cpu"`` only when asked).
+
+The persistent K-tick driver (``stage_super``, ``run_persistent_staged``,
+``run_persistent``) runs K ticks of a ``[K, B + n_inputs]`` super-batch in
+one call, the counterpart of the reference's ``lax.scan`` with donated
+state.  On the CPU it is a plain loop of K ticks.  On the card it is one
+CUDA graph per super-batch shape ``(K, lanes, kmax, payload_width)``: the
+first call of a shape runs the K ticks on a side stream (the warm-up torch
+asks for before a capture) and then captures them; every later call copies
+its operands into the graph's static buffers and replays it.  A
+reconfiguration's control tuples are written into the pad lanes of tick
+``reconfig_at`` inside the graph, at a tick index held in a device tensor,
+so one graph serves the steady and the reconfiguring call alike.  A tick
+function that cannot be captured (one that reads a value back to the
+host, as the general O+ tick does) makes the call raise.  ``MeshPipeline``
+comes with the mesh slice.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
-from typing import Any, Callable, Optional
+import time
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -31,6 +47,8 @@ from repro_torch.core import elastic, scalegate, sn, vsn
 from repro_torch.core import tuples as T
 from repro_torch.core.controller import Reconfiguration
 from repro_torch.core.operator import OperatorDef, tick as general_tick
+from repro_torch.kernels import dispatch
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def fold_frontier(frontier: np.ndarray, b: T.TupleBatch,
@@ -57,6 +75,134 @@ def ctrl_lanes(n_inputs: int, frontier, epoch_id: int, kmax: int, p: int,
         lanes.append(dataclasses.replace(
             c, source=torch.full((1,), i, dtype=torch.int32, device=device)))
     return functools.reduce(T.concat, lanes)
+
+
+def inject_ctrl(stack: T.TupleBatch, ctrl: T.TupleBatch, rc_tick,
+                n_inputs: int) -> T.TupleBatch:
+    """Overwrite the ctrl pad region (the last ``n_inputs`` lanes) of tick
+    ``rc_tick`` in a ``[K, B + n_inputs]`` super-batch with ``ctrl``'s
+    lanes (out of place).  ``rc_tick`` is an int64[1] tensor on the stack's
+    device, so one captured graph covers the reconfiguring and the steady
+    call: with no reconfiguration the caller passes all-invalid ``ctrl``
+    lanes, and the write changes nothing (``stage_super`` fills the pad
+    region with them)."""
+    width = stack.tau.shape[1]
+    lanes = torch.arange(width - n_inputs, width, device=stack.device)
+    return tree_map(lambda a, c: a.index_put((rc_tick, lanes),
+                                             c.to(a.dtype)), stack, ctrl)
+
+
+@dataclasses.dataclass
+class PersistentOut:
+    """What one persistent K-tick call returns: the stacked data lane and
+    the control lane, each with a leading K axis."""
+    outs_pre: Any                  # [K, ...] per-tick pre-phase outputs
+    outs_post: Any                 # [K, ...] per-tick post-phase outputs
+    switched: torch.Tensor         # bool[K]  epoch switch per tick
+    wmark: torch.Tensor            # i32[K]   watermark report per tick
+    inst_load: Any = None          # i32[K, n_max]
+
+
+class GraphCaptureError(RuntimeError):
+    """A persistent call's ticks could not be captured as a CUDA graph."""
+
+
+def _driver():
+    """The CUDA driver's graph-inspection calls, with their argument and
+    result types declared."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    p, pp = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
+    for name, args in (
+            ("cuGraphGetNodes", (p, pp, ctypes.POINTER(ctypes.c_size_t))),
+            ("cuGraphNodeGetType", (p, ctypes.POINTER(ctypes.c_int))),
+            ("cuGraphKernelNodeGetParams", (p, pp)),
+            ("cuFuncGetName", (ctypes.POINTER(ctypes.c_char_p), p)),
+            ("cuGraphMemcpyNodeGetParams", (p, ctypes.c_void_p))):
+        fn = getattr(cu, name)
+        fn.argtypes, fn.restype = args, ctypes.c_int
+    return cu
+
+
+def graph_nodes(graph) -> Optional[dict]:
+    """A captured graph's nodes by type, its kernels by name and the
+    memory copies that touch host memory (the zero-host-transfer
+    witness), read through the driver API; None where the driver lacks a
+    call."""
+    try:
+        cu = _driver()
+    except (AttributeError, OSError):
+        return None
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(count)):
+        return None
+    nodes = (ctypes.c_void_p * count.value)()
+    cu.cuGraphGetNodes(raw, nodes, ctypes.byref(count))
+    kinds = {0: "kernel", 1: "memcpy", 2: "memset"}
+    by_type: Dict[str, int] = {}
+    by_kernel: Dict[str, int] = {}
+    host_copies = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        cu.cuGraphNodeGetType(node, ctypes.byref(kind))
+        name = kinds.get(kind.value, f"type{kind.value}")
+        by_type[name] = by_type.get(name, 0) + 1
+        if name == "kernel":
+            params = (ctypes.c_void_p * 16)()   # CUfunction is the first field
+            fname = ctypes.c_char_p()
+            ok = (cu.cuGraphKernelNodeGetParams(node, params) == 0
+                  and cu.cuFuncGetName(ctypes.byref(fname), params[0]) == 0)
+            key = fname.value.decode() if ok and fname.value else "?"
+            by_kernel[key] = by_kernel.get(key, 0) + 1
+        elif name == "memcpy":
+            mp = _Memcpy3D()
+            if (cu.cuGraphMemcpyNodeGetParams(node, ctypes.byref(mp)) == 0
+                    and 1 in (mp.srcMemoryType, mp.dstMemoryType)):
+                host_copies += 1
+    return dict(nodes=len(nodes), by_type=by_type, by_kernel=by_kernel,
+                host_copies=host_copies)
+
+
+class _Memcpy3D(ctypes.Structure):
+    """The driver's ``CUDA_MEMCPY3D`` (memory type 1 is host memory)."""
+    _fields_ = [(n, t) for side in ("src", "dst") for n, t in (
+        (f"{side}XInBytes", ctypes.c_size_t), (f"{side}Y", ctypes.c_size_t),
+        (f"{side}Z", ctypes.c_size_t), (f"{side}LOD", ctypes.c_size_t),
+        (f"{side}MemoryType", ctypes.c_int), (f"{side}Host", ctypes.c_void_p),
+        (f"{side}Device", ctypes.c_void_p), (f"{side}Array", ctypes.c_void_p),
+        (f"reserved_{side}", ctypes.c_void_p),
+        (f"{side}Pitch", ctypes.c_size_t), (f"{side}Height", ctypes.c_size_t))
+    ] + [("WidthInBytes", ctypes.c_size_t), ("Height", ctypes.c_size_t),
+         ("Depth", ctypes.c_size_t)]
+
+
+@dataclasses.dataclass
+class _Graph:
+    """One captured persistent call: its static inputs (``state`` =
+    (sg, epoch, sigma), which the graph overwrites with the state after the
+    K ticks, and ``operands`` = (stack, ctrl, rc tick, fmu_new,
+    active_new)), its stacked outputs, and what its capture recorded."""
+    graph: Any
+    state: tuple
+    operands: tuple
+    outs: tuple
+    launches: Dict[str, int]       # kernel launches of one replay, by name
+    capture_s: float
+    instantiate_s: float
+    nodes: Optional[dict]
+    replays: int = 0
+
+
+def _load(dst, src) -> None:
+    """Copy the tree ``src`` into the static tree ``dst`` (leaves that are
+    already the static buffers are skipped; host leaves go through pinned
+    memory, asynchronously)."""
+    for d, s_ in zip(tree_leaves(dst), tree_leaves(src)):
+        if s_ is d:
+            continue
+        if s_.device.type == "cpu":
+            s_ = s_.pin_memory()
+        d.copy_(s_, non_blocking=True)
 
 
 def _to_np(tree):
@@ -143,6 +289,8 @@ class VSNPipeline:
         # VSN moves no sigma bytes at a switch (Theorem 3): there is no
         # transfer path, so this stays 0; SNPipeline counts its transfers.
         self.bytes_transferred = 0
+        self._graphs: Dict[tuple, _Graph] = {}   # (K, lanes, kmax, p) ->
+        self._stage_stream = None
 
     def _ensure_gate(self, kmax: int, payload_width: int):
         if self.sg is None:
@@ -229,6 +377,210 @@ class VSNPipeline:
     def switch_bytes(self) -> int:
         """Bytes a reconfiguration moves: the tables only."""
         return elastic.vsn_switch_bytes(self.epoch)
+
+    # -- persistent K-tick driver -------------------------------------------
+    def _frontier_after(self, batches, frontier0=None) -> np.ndarray:
+        """Per-source last forwarded tau once ``batches`` have been pushed
+        (the Alg. 5 stamp of a control tuple injected after them);
+        ``frontier0`` avoids reading the gate's frontier from the device."""
+        frontier = (np.asarray(frontier0).copy() if frontier0 is not None
+                    else self.sg.wmark.frontier.cpu().numpy().copy())
+        for b in batches:
+            fold_frontier(frontier, b, self.op.n_inputs)
+        return frontier
+
+    def stage_super(self, batches) -> T.TupleBatch:
+        """Stack K same-shape ticks, each followed by its all-invalid ctrl
+        pad lanes, into one ``[K, B + n_inputs]`` super-batch on the
+        pipeline's device.  Host ticks bound for the card are stacked in
+        pinned memory and copied once per field on a side stream; the
+        current stream waits for the copies on an event (the host does
+        not), and the result is recorded on it."""
+        batches = list(batches)
+        if not batches:
+            raise ValueError("empty super-batch")
+        b0 = batches[0]
+        kmax, p, n = b0.kmax, b0.payload_width, self.op.n_inputs
+        self._ensure_gate(kmax, p)
+        pad = T.empty_batch(n, kmax, p, "cpu")
+        if self.device.type != "cuda" or any(b.device.type == "cuda"
+                                             for b in batches):
+            pad = pad.to(self.device)
+            batches = [b.to(self.device) for b in batches]
+            return T.TupleBatch(**{f: torch.stack([
+                torch.cat([getattr(b, f), getattr(pad, f)])
+                for b in batches]) for f in T.FIELDS})
+        if self._stage_stream is None:
+            self._stage_stream = torch.cuda.Stream(self.device)
+        k, width = len(batches), b0.batch + n
+        host = {}
+        for f in T.FIELDS:
+            a0 = getattr(b0, f)
+            h = torch.empty((k, width) + tuple(a0.shape[1:]), dtype=a0.dtype,
+                            pin_memory=True)
+            h[:, :b0.batch] = torch.stack([getattr(b, f) for b in batches])
+            h[:, b0.batch:] = getattr(pad, f)
+            host[f] = h
+        with torch.cuda.stream(self._stage_stream):
+            staged = {f: h.to(self.device, non_blocking=True)
+                      for f, h in host.items()}
+            done = torch.cuda.Event()
+            done.record(self._stage_stream)
+        cur = torch.cuda.current_stream(self.device)
+        cur.wait_event(done)
+        for t in staged.values():
+            t.record_stream(cur)
+        return T.TupleBatch(**staged)
+
+    def run_persistent_staged(self, stack: T.TupleBatch,
+                              reconfig: Optional[Reconfiguration] = None,
+                              reconfig_at: int = 0,
+                              frontier=None) -> PersistentOut:
+        """K ticks over a staged super-batch in one call.  A
+        reconfiguration's control tuples go into the ctrl pad lanes of
+        tick ``reconfig_at``; ``frontier`` must then be the per-source last
+        forwarded tau after the ticks before it (see ``run_persistent``).
+        After the call the pipeline's state is the state after tick K."""
+        k, width = stack.tau.shape
+        kmax, p, n = stack.keys.shape[-1], stack.payload.shape[-1], \
+            self.op.n_inputs
+        self._ensure_gate(kmax, p)
+        if reconfig is not None:
+            if frontier is None:
+                frontier = self.sg.wmark.frontier.cpu().numpy()
+            ctrl = ctrl_lanes(n, frontier, reconfig.epoch, kmax, p, "cpu")
+            rc = max(reconfig_at, 0)
+            fmu_new = torch.as_tensor(np.asarray(reconfig.fmu),
+                                      dtype=torch.int32)
+            active_new = torch.as_tensor(np.asarray(reconfig.active),
+                                         dtype=torch.bool)
+        else:
+            ctrl, rc = T.empty_batch(n, kmax, p, "cpu"), 0
+            fmu_new, active_new = self.epoch.fmu, self.epoch.active
+        operands = (stack, ctrl, torch.tensor([rc], dtype=torch.int64),
+                    fmu_new, active_new)
+        if self.device.type == "cuda":
+            res = self._replay((k, width, kmax, p), operands)
+        else:
+            res = self._persistent_ticks(
+                self.sg, self.epoch, self.sigma,
+                *(tree_map(lambda a: a.to(self.device), x) for x in operands))
+        (self.sg, self.epoch, self.sigma, o1, o2, sw, wmk, il) = res
+        return PersistentOut(outs_pre=o1, outs_post=o2, switched=sw,
+                             wmark=wmk, inst_load=il)
+
+    def run_persistent(self, batches,
+                       reconfig: Optional[Reconfiguration] = None,
+                       reconfig_at: int = 0, frontier0=None) -> PersistentOut:
+        """``stage_super`` + ``run_persistent_staged``: tick for tick the
+        same as K sequential ``step_staged`` calls, a reconfiguration at
+        tick ``reconfig_at`` included."""
+        batches = list(batches)
+        if not batches:
+            raise ValueError("empty super-batch")
+        self._ensure_gate(batches[0].kmax, batches[0].payload_width)
+        frontier = None
+        if reconfig is not None:
+            frontier = self._frontier_after(batches[:max(reconfig_at, 0)],
+                                            frontier0)
+        return self.run_persistent_staged(self.stage_super(batches),
+                                          reconfig=reconfig,
+                                          reconfig_at=reconfig_at,
+                                          frontier=frontier)
+
+    def persistent_graphs(self) -> Dict[tuple, dict]:
+        """For each captured super-batch shape: the kernel launches of one
+        replay by kernel (the wrappers' tally at capture), the graph's
+        nodes by type and kernel name and its memory copies touching host
+        memory (``graph_nodes``; a capture admits no host sync), the
+        capture and instantiate seconds and the replays so far."""
+        return {key: dict(launches=dict(g.launches), nodes=g.nodes,
+                          capture_s=g.capture_s,
+                          instantiate_s=g.instantiate_s, replays=g.replays)
+                for key, g in self._graphs.items()}
+
+    def _persistent_ticks(self, sg, epoch, sigma, stack, ctrl, rc, fmu_new,
+                          active_new):
+        """The K ticks (the scan body), with the outputs stacked."""
+        stack = inject_ctrl(stack, ctrl, rc, self.op.n_inputs)
+        ticks = []
+        for i in range(stack.tau.shape[0]):
+            (sg, epoch, sigma, *out) = vsn.pipeline_tick(
+                sg, epoch, sigma, tree_map(lambda a: a[i], stack), fmu_new,
+                active_new, self._tick_with_epoch, self._inst_load)
+            ticks.append(out)
+        return (sg, epoch, sigma) + tuple(vsn.stack(x) for x in zip(*ticks))
+
+    def _replay(self, key, operands):
+        """The card's persistent call: replay the shape's graph, or, on the
+        shape's first call, run the ticks on a side stream and capture
+        them."""
+        g = self._graphs.get(key)
+        if g is None:
+            return self._capture(key, operands)
+        _load(g.state, (self.sg, self.epoch, self.sigma))
+        _load(g.operands, operands)
+        g.graph.replay()
+        dispatch.add_launches(g.launches)
+        g.replays += 1
+        return g.state + tuple(tree_map(torch.clone, o) for o in g.outs)
+
+    def _capture(self, key, operands):
+        dev = self.device
+        state = (self.sg, self.epoch, self.sigma)
+        static = tree_map(lambda a: torch.empty(a.shape, dtype=a.dtype,
+                                                device=dev), (state, operands))
+        _load(static, (state, operands))
+        args = static[0] + static[1]
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            first = self._persistent_ticks(*args)
+        cur.wait_stream(side)
+        for t in tree_leaves(first):
+            t.record_stream(cur)
+
+        # kept after capture, so that its nodes can be counted
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        t0 = time.perf_counter()
+        try:
+            with dispatch.recording() as tally, torch.cuda.graph(
+                    graph, capture_error_mode="thread_local"):
+                out = self._persistent_ticks(*args)
+                _copy_state(static[0], out[:3])
+        except RuntimeError as e:
+            # the failed call's error, where ending the capture raised anew
+            cause = e.__context__ if e.__context__ is not None else e
+            raise GraphCaptureError(
+                f"the tick function cannot be captured as a CUDA graph "
+                f"({type(cause).__name__}: {cause}); the persistent driver "
+                f"needs a tick with no host read (the fast paths; the "
+                f"general O+ tick reads its expiry condition back to the "
+                f"host each round, ROADMAP.md queue 1 item 3)") from e
+        capture_s = time.perf_counter() - t0
+        nodes = graph_nodes(graph)
+        t0 = time.perf_counter()
+        graph.instantiate()
+        instantiate_s = time.perf_counter() - t0
+        self._graphs[key] = _Graph(
+            graph=graph, state=static[0], operands=static[1],
+            outs=tuple(out[3:]), launches=tally, capture_s=capture_s,
+            instantiate_s=instantiate_s, nodes=nodes)
+        return first
+
+
+def _copy_state(dst, src) -> None:
+    """Inside a capture: write the state after the K ticks into the static
+    state buffers, the next replay's input (a leaf the ticks passed through
+    unchanged is already there)."""
+    pairs = [(d, s_) for d, s_ in zip(tree_leaves(dst), tree_leaves(src))
+             if d is not s_]
+    dsts = {id(d) for d, _ in pairs}
+    # a source that is another position's static buffer is read first
+    pairs = [(d, s_.clone() if id(s_) in dsts else s_) for d, s_ in pairs]
+    for d, s_ in pairs:
+        d.copy_(s_)
 
 
 @dataclasses.dataclass

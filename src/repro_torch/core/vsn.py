@@ -25,7 +25,8 @@ from repro_torch.core import elastic, scalegate
 from repro_torch.core import tuples as T
 from repro_torch.core.aggregate import FastAggState
 from repro_torch.core.join import FastJoinState
-from repro_torch.core.operator import OperatorDef, OpState, Outputs, tick
+from repro_torch.core.operator import (OperatorDef, OpState, Outputs,
+                                       instances_share, tick)
 from repro_torch.tree import tree_map
 
 
@@ -81,11 +82,13 @@ def run_tick(op: OperatorDef, state, ready: T.TupleBatch,
     returns the merged state and the per-instance stacked outputs.
     """
     states, outs = [], []
-    for j in range(active.shape[0]):
-        st_j, out_j = tick_fn(op, state, ready, responsibility(fmu, j, active),
-                              explicit_w=None)
-        states.append(st_j)
-        outs.append(out_j)
+    with instances_share():
+        for j in range(active.shape[0]):
+            st_j, out_j = tick_fn(op, state, ready,
+                                  responsibility(fmu, j, active),
+                                  explicit_w=None)
+            states.append(st_j)
+            outs.append(out_j)
     return merge_fn(stack(states), fmu), stack(outs)
 
 

@@ -3,7 +3,8 @@
 Held against ``src/repro/io/sinks.py``.  ``flatten_outputs`` gives the
 sorted-multiset currency of every parity check (``(tau, payload rounded to
 4 decimals)`` per valid lane); ``CollectSink`` keeps the tick outputs as
-device tensors and materializes the multiset in ``results()``.
+device tensors and materializes the multiset in ``results()``;
+``NullSink`` is the throughput sink.
 """
 
 from __future__ import annotations
@@ -46,3 +47,23 @@ class CollectSink:
                 continue
             res += flatten_outputs(o1) + flatten_outputs(o2)
         return sorted(res)
+
+
+class NullSink:
+    """Drops outputs, keeping only the latest so that ``finalize()`` can
+    fence the device's queue with one read: the throughput sink."""
+
+    def __init__(self):
+        self.ticks = 0
+        self._last = None
+
+    def accept(self, tick_id: int, outs_pre, outs_post) -> None:
+        self.ticks += 1
+        self._last = outs_pre
+
+    def finalize(self) -> None:
+        if self._last is not None:
+            self._last.tau.cpu()
+
+    def results(self) -> Optional[list]:
+        return None

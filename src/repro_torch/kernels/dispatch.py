@@ -10,11 +10,15 @@ version; a CUDA launch that fails raises.
 Each entry counts its launches in a plain integer, ``Kernel.launches``,
 incremented once per kernel launch and nowhere else, so a run can show that
 its path went through the kernel.  The ingest tier launches from several
-threads at once, so the increment holds a lock.
+threads at once, so the increment holds a lock.  A call made while a CUDA
+graph is captured launches nothing: inside ``recording()`` it goes to the
+capturing thread's tally instead, and ``add_launches`` adds that tally
+each time the graph is replayed.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 from typing import Callable, Dict
@@ -22,6 +26,7 @@ from typing import Callable, Dict
 import torch
 
 _COUNT_LOCK = threading.Lock()
+_CAPTURE = threading.local()
 
 
 @dataclasses.dataclass
@@ -40,6 +45,10 @@ class Kernel:
         if dev.type != "cuda":
             raise ValueError(f"{self.name}: unsupported device {dev}")
         out = self.cuda(*args, **kwargs)
+        tally = getattr(_CAPTURE, "tally", None)
+        if tally is not None:
+            tally[self.name] = tally.get(self.name, 0) + 1
+            return out
         with _COUNT_LOCK:
             self.launches += 1
         return out
@@ -61,6 +70,27 @@ def registered() -> Dict[str, Kernel]:
 def reset_launches() -> None:
     for k in _REGISTRY.values():
         k.launches = 0
+
+
+@contextlib.contextmanager
+def recording():
+    """Inside this block this thread's kernel calls are being captured into
+    a CUDA graph: they are tallied by name in the yielded dict, not
+    counted as launches."""
+    prev = getattr(_CAPTURE, "tally", None)
+    _CAPTURE.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _CAPTURE.tally = prev
+
+
+def add_launches(tally: Dict[str, int]) -> None:
+    """Count the launches of one replay of a graph whose capture tallied
+    ``tally``."""
+    with _COUNT_LOCK:
+        for name, n in tally.items():
+            _REGISTRY[name].launches += n
 
 
 def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,

@@ -1,6 +1,7 @@
 """Structure maps over the port's state containers (stands in for ``jax.tree``).
 
-A tree is a dataclass, a dict, or a leaf (a tensor or anything else).
+A tree is a dataclass, a dict, a tuple or list, or a leaf (a tensor or
+anything else).
 """
 
 from __future__ import annotations
@@ -18,6 +19,9 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
     return fn(tree, *rest)
 
 

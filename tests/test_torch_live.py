@@ -187,9 +187,14 @@ def test_launcher_pipeline_matches_reference_general_run():
 
 
 def test_super_batch_is_not_ported_yet():
+    """Kept under its old name: ``super_batch > 1`` is ported now (the
+    persistent driver; ``tests/test_torch_persistent.py`` holds it against
+    the reference), so the runtime takes it and refuses only K < 1."""
     _, pp = _pipes()
-    with pytest.raises(NotImplementedError, match="run_persistent"):
-        AsyncStreamRuntime(pp, [], super_batch=4)
+    rep = AsyncStreamRuntime(pp, [], super_batch=4).run()
+    assert rep.ticks == 0
+    with pytest.raises(ValueError, match="super_batch"):
+        AsyncStreamRuntime(pp, [], super_batch=0)
 
 
 # ------------------------------------------------ controllers + metrics --
