@@ -66,7 +66,26 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
                  one stacked-merge launch per root round; then a second
                  pass with ``super_batch`` 8 (one graph a round shape),
                  equal to a CPU ``run_sync`` replaying its own trace.
-8-9. ``serve_qwen3_14b``, ``serve_rwkv6_7b`` — each model at its published
+8. ``q1_recovery`` — the same Q1 stream over the tier (join at tick 9,
+                 leave at 32) through ``build_runtime`` with the fast
+                 count tick, ``super_batch`` 8 and a checkpoint every 8
+                 ticks: an uninterrupted oracle; a victim stopped after
+                 28 ticks with a torn newer save planted; then
+                 ``resume_runtime``'s steps (``latest_step``,
+                 ``like_tree``, ``Checkpointer.restore``,
+                 ``tier_restore_dict``, ``build_runtime(restore=...)``) on
+                 a fresh fast pipeline over the replay suffix, the leave
+                 re-issued.  The restored step is 25 (source tick 24),
+                 the torn step invisible, and the victim's committed plus
+                 the replayed outputs equal the oracle's exactly; bytes,
+                 capture, write and restore ms, detect→first output.
+9. ``launchers`` — ``repro_torch.launch.elastic_drill`` (straggler,
+                 live, ingest, serving, crash) and ``live`` with its
+                 oracle, checkpoints and a recording followed by ``live
+                 --resume``, each a process of its own on the card, and
+                 the same ``live`` run on the CPU with an equal output
+                 count; the recovery drills are cut (``launchers``).
+10-11. ``serve_qwen3_14b``, ``serve_rwkv6_7b`` — each model at its published
                  width and depth in bfloat16 (random parameters drawn on the
                  card), one after the other, through ``build_runtime`` ->
                  ``AsyncStreamRuntime`` -> ``ServingPipeline`` ->
@@ -78,9 +97,11 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
                  token-identical to ``reference_decode`` (see
                  ``serve_full_width``).
 
-Phases 3 to 9 are the main path: each zeroes the launch counts right
-before its card run and reads them right after, and the ``{"kernels":
-[...]}`` line reports their sum with phase 2's times.  A graph replay
+Phases 3 to 11 are the main path: each zeroes the launch counts right
+before its card run and reads them right after (``launchers`` reads each
+of its processes' counts), and the ``{"kernels": [...]}`` line reports
+their sum with phase 2's times.  Each phase's line holds its
+``seconds``.  A graph replay
 counts the launches its capture tallied (``dispatch.add_launches``).  The last line is
 ``{"ok": true, "device": {...}}``.  A kernel's ``ms`` is the median over
 20 CUDA-event pairs of the mean of 20 back-to-back launches after
@@ -95,6 +116,11 @@ parent) on one card: linear_scan's rows (decode, prefill T 128 and T
 1024), segment_aggregate as ``aggregate._scatter_reduce`` issues it at
 Q1's Zipf shape, window_join as ``join.band_join_counts`` issues it at
 the Q3 and bench shapes, and Q1's eager tick (``turn_rows``).
+
+    python3 chip_smoke.py --drill-times
+
+times each drill of ``elastic_drill`` alone on the card (``drill_times``):
+why the ``launchers`` phase runs the drills it runs.
 """
 
 import dataclasses
@@ -2067,7 +2093,351 @@ def q1_ingest_tier(dev, n_ticks=40, tick=2048, join_at=12, leave_at=24):
 
 
 # ---------------------------------------------------------------------------
-# phases 8-9: the elastic serving tier at full width (qwen3-14b, rwkv6-7b)
+# phase 8: checkpoint and exactly-once recovery (Q1 over the ingest tier)
+# ---------------------------------------------------------------------------
+
+def dispatch_ms(rt) -> dict:
+    """A run's dispatch latencies by first tick id (ms)."""
+    return {r.tick_id: r.latency_s * 1e3 for r in rt.runtime.metrics.records}
+
+
+def span_ms(o, name: str) -> list:
+    """Every finished ``name`` span's milliseconds, in order."""
+    return [s["dur_s"] * 1e3 for s in o.tracer.finished if s["name"] == name]
+
+
+def q1_recovery(dev, n_ticks=40, tick=2048, k_virt=4096, k=8, join_at=9,
+                leave_at=32, crash_after=28, want_step=25):
+    """Q1 over the ingest tier as ``q1_ingest_tier`` runs it, the fast count
+    tick in super-batches of ``k`` with a checkpoint every ``k`` ticks: an
+    uninterrupted oracle run, a victim stopped after ``crash_after`` ticks
+    with a torn newer save planted, and ``resume_runtime``'s steps on a
+    fresh fast pipeline over the replay suffix (``remove_host`` re-issued:
+    tier commands are intents, not state).  The restored step must be
+    ``want_step`` and the victim's committed outputs plus the replayed ones
+    the oracle's, exactly.  The defaults are the card's run; smaller
+    arguments rehearse it on the CPU (``dev="cpu"``), where no kernel
+    launches.
+
+    A snapshot's step counts merged tier rounds: a membership command
+    before the cut adds its own round, so the cut at source tick 24 is
+    step 25, and the runtime captures a step only where a super-batch
+    starts.  A join at tick 9 flushes the open group there (the round
+    width changes with the leaf count), which puts every later group start
+    on a cut."""
+    import tempfile
+
+    from repro_torch import api
+    from repro_torch import obs as _obs
+    from repro_torch.checkpoint import stream as ckstream
+    from repro_torch.checkpoint.checkpoint import Checkpointer
+    from repro_torch.core import aggregate as agg
+    from repro_torch.core.runtime import VSNPipeline
+    from repro_torch.core.vsn import merge_fast_state
+    from repro_torch.data import datagen
+    from repro_torch.io.sources import RateSchedule, ReplaySource
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.recovery import StampedSink
+
+    N_SRC, N_LEAVES = 8, 4
+    dev = torch.device(dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else lambda: None
+    batches = list(datagen.tweets(
+        np.random.default_rng(7), n_ticks=n_ticks, tick=tick,
+        words_per_tweet=6, vocab=50000, k_virt=k_virt, rate_per_tick=200,
+        n_sources=N_SRC, device="cpu"))
+    # the q1_ingest_tier phase's declared rate hint: only so that some
+    # switch happens (the outputs are the same whichever switches do)
+    sched = RateSchedule(((join_at, 6000.0), (n_ticks, 60000.0)))
+    tmp = tempfile.TemporaryDirectory()
+    ckdir = tmp.name
+    cfg = api.RuntimeConfig(
+        op="count", wa=1000, ws=2000, wt="multi", k_virt=k_virt,
+        out_cap=4096, extra_slots=2, n_max=16, n_active=4, stash_cap=tick,
+        device=str(dev), n_sources=N_SRC, ingest_hosts=N_LEAVES,
+        ingest_worker="thread", leaf_cap=tick, root_cap=2 * tick,
+        out_pad=tick, root_device=True, queue_cap=4, super_batch=k,
+        controller="threshold", capacity_per_instance=2500.0,
+        checkpoint_dir=ckdir, checkpoint_every=k)
+    op = api.make_op(cfg)
+
+    def fast_pipeline():
+        return VSNPipeline(
+            op, n_max=cfg.n_max, n_active=cfg.n_active,
+            stash_cap=cfg.stash_cap,
+            tick_fn=lambda o, s, r, m, explicit_w=None: agg.tick_fast(
+                o, "count", s, r, m, explicit_w=explicit_w),
+            merge_fn=merge_fast_state,
+            init_sigma=functools.partial(agg.fast_init, op), device=dev)
+
+    def source(start=0):
+        return ReplaySource(batches, n_inputs=N_SRC,
+                            schedule=sched).from_tick(start)
+
+    # spans keep the capture and write times (a ring large enough to
+    # hold every span of the three runs)
+    o = _obs.install(_obs.ObsConfig(enabled=True, trace=True,
+                                    span_cap=1 << 16))
+    try:
+        dispatch.reset_launches()
+        # the oracle: uninterrupted, checkpointing off
+        oracle = api.build_runtime(
+            dataclasses.replace(cfg, checkpoint_dir=None,
+                                checkpoint_every=0), source(),
+            pipeline=fast_pipeline())
+        oracle.tier.add_host(at_tick=join_at)
+        oracle.tier.remove_host(0, at_tick=leave_at)
+        orep = oracle.run()
+        sync()
+        want = sorted(oracle.sink.results())
+
+        # the victim: checkpointing on, stopped after crash_after ticks
+        victim = api.build_runtime(cfg, source(), pipeline=fast_pipeline())
+        victim.tier.add_host(at_tick=join_at)
+        victim.tier.remove_host(0, at_tick=leave_at)
+        vrep = victim.run(max_ticks=crash_after)
+        sync()
+        t_detected = time.perf_counter()          # the "crash" instant
+        victim.checkpointer.wait()
+        saved = list(victim.checkpointer.saved_steps)
+        ck = Checkpointer(ckdir)
+        last_saved = ck.latest_step()
+        torn = f"step_{last_saved + k:08d}"
+        (pathlib.Path(ckdir) / torn).mkdir()
+        np.save(pathlib.Path(ckdir) / torn / "leaf_00000.npy", np.zeros(3))
+
+        # the restore, step by step as resume_runtime takes it, onto a
+        # fresh fast pipeline
+        t0 = time.perf_counter()
+        step = ck.latest_step()
+        manifest = ck.manifest(step)
+        extra = manifest["extra"]
+        rcfg = api.RuntimeConfig.from_json(extra["config"])
+        pipe = fast_pipeline()
+        like = ckstream.like_tree(
+            pipe, extra, n_sources=rcfg.n_sources, leaf_cap=rcfg.leaf_cap,
+            root_cap=rcfg.root_cap, max_leaves=rcfg.effective_max_leaves,
+            out_pad=rcfg.out_pad, root_device=rcfg.root_device)
+        tree = ck.restore(step, like)
+        restore = {"pipe": tree["pipe"], "tick0": step,
+                   "tier": ckstream.tier_restore_dict(tree, extra["tier"])}
+        sink = StampedSink()
+        restored = api.build_runtime(
+            rcfg, source(int(extra["source_ticks"])), pipeline=pipe,
+            sink=sink, restore=restore)
+        restored.tier.remove_host(0, at_tick=leave_at)
+        sync()
+        t_restored = time.perf_counter()
+        rrep = restored.run()
+        sync()
+        launches = {name: v.launches
+                    for name, v in dispatch.registered().items()}
+        capture_ms = span_ms(o, "checkpoint.capture")
+        write_ms = span_ms(o, "checkpoint.write")
+    finally:
+        _obs.set_current(None)
+        tmp.cleanup()
+    got = sorted(victim.sink.results(before_tick=step) + sink.results())
+    assert step == want_step, (step, saved)
+    assert step == last_saved == saved[-1], "the torn save was visible"
+    assert extra["source_ticks"] == step - 1, extra["source_ticks"]
+    if got != want:
+        raise AssertionError(
+            f"q1_recovery: committed + replayed ({len(got)}) != the "
+            f"oracle's outputs ({len(want)})")
+    if dev.type == "cuda":
+        for name in ("scalegate_merge", "scalegate_merge_stacked",
+                     "segment_aggregate"):
+            assert launches[name] > 0, launches
+    n_bytes = sum(int(np.prod(s)) * np.dtype(
+        "uint16" if d == "bfloat16" else d).itemsize
+        for s, d in zip(manifest["shapes"], manifest["dtypes"]))
+    graphs = pipe.persistent_graphs()
+    first_replay_ms = (restored.runtime.metrics.records[1].latency_s * 1e3
+                       if len(restored.runtime.metrics.records) > 1
+                       else None)
+    return dict(
+        phase="q1_recovery", ticks=n_ticks, tick_tuples=tick,
+        k_virt=k_virt, sources=N_SRC, leaves=N_LEAVES, super_batch=k,
+        checkpoint_every=k, join_at=join_at, leave_at=leave_at,
+        crash_after=crash_after, saved_steps=saved, restored_step=step,
+        restored_source_ticks=extra["source_ticks"], torn_step=torn,
+        torn_invisible=True, parity=True, outputs=len(want),
+        committed=len(victim.sink.results(before_tick=step)),
+        replayed=len(sink.results()),
+        checkpoint_bytes=n_bytes, checkpoint_leaves=manifest["n_leaves"],
+        capture_ms=capture_ms,
+        capture_ms_median=statistics.median(capture_ms),
+        write_ms=write_ms, write_ms_median=statistics.median(write_ms),
+        # a run's first dispatch of a shape warms up and captures its
+        # graph; the later ones replay it
+        victim=dict(dispatches=vrep.ticks, p50_ms=vrep.p50_ms,
+                    p99_ms=vrep.p99_ms, wall_s=vrep.wall_s,
+                    dispatch_ms=dispatch_ms(victim)),
+        oracle=dict(dispatches=orep.ticks, p50_ms=orep.p50_ms,
+                    p99_ms=orep.p99_ms, wall_s=orep.wall_s,
+                    dispatch_ms=dispatch_ms(oracle),
+                    reconfigs=[(tk, int(rc.n_active))
+                               for tk, rc in orep.reconfig_trace]),
+        restore_ms=(t_restored - t0) * 1e3,
+        detect_to_first_output_ms=(sink.t_first - t_detected) * 1e3,
+        split_ms=dict(
+            restore=(t_restored - t0) * 1e3,
+            run_start_to_first_output=(sink.t_first - t_restored) * 1e3,
+            first_graph_capture=(None if not graphs else 1e3 * next(
+                iter(graphs.values()))["capture_s"]),
+            first_graph_instantiate=(None if not graphs else 1e3 * next(
+                iter(graphs.values()))["instantiate_s"]),
+            first_replay=first_replay_ms),
+        restored_run=dict(dispatches=rrep.ticks, p50_ms=rrep.p50_ms,
+                          p99_ms=rrep.p99_ms,
+                          dispatch_ms=dispatch_ms(restored),
+                          graphs=len(graphs),
+                          shapes=["x".join(map(str, key))
+                                  for key in graphs]),
+        launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the stream launchers on the card (elastic_drill, live)
+# ---------------------------------------------------------------------------
+
+# Runs a launcher's ``main`` in a process of its own, as ``python -m``
+# would, and prints the process's kernel launches as the last line.
+LAUNCHER = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "from repro_torch.kernels import dispatch; "
+            "mod = __import__('repro_torch.launch.' + sys.argv[2], "
+            "fromlist=['main']); rc = mod.main(sys.argv[3:]); "
+            "print(json.dumps({k: v.launches for k, v in "
+            "dispatch.registered().items()})); sys.exit(rc)")
+
+# the reference's summary lines each launcher prints
+LAUNCHER_LINES = ("# device", "[1]", "[2]", "[3]", "[4]", "[5]", "[6]", "[6k]",
+                  "[live", "elastic drill OK", "live run OK",
+                  "live resume OK")
+
+
+def run_launcher(module: str, argv, timeout: float):
+    """One launcher in its own process on the card; raises on a nonzero
+    exit.  Returns its seconds, its summary lines and its launches."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", LAUNCHER, str(ROOT / "src"), module,
+         *argv], capture_output=True, text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(
+            f"launchers: {module} {' '.join(argv)} exited "
+            f"{out.returncode}:\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    lines = out.stdout.strip().splitlines()
+    return dict(argv=[module, *argv], seconds=seconds,
+                summary=[ln for ln in lines[:-1]
+                         if ln.startswith(LAUNCHER_LINES)],
+                launches=json.loads(lines[-1]))
+
+
+def drill_times(limits=(("crash", 90), ("serving", 120), ("ingest", 120),
+                        ("straggler", 200), ("live", 240),
+                        ("recovery", 300))) -> None:
+    """Each drill of ``elastic_drill`` alone on the card, in a process of
+    its own, with its seconds; a drill past its limit (seconds) is killed
+    and reported so.  One JSON line a drill.
+
+        python3 chip_smoke.py --drill-times
+    """
+    for drill, limit in limits:
+        t0 = time.perf_counter()
+        try:
+            run = run_launcher("elastic_drill", ["--drills", drill], limit)
+            emit(dict(phase="drill_times", drill=drill,
+                      seconds=run["seconds"], summary=run["summary"]))
+        except subprocess.TimeoutExpired:
+            emit(dict(phase="drill_times", drill=drill,
+                      seconds=time.perf_counter() - t0,
+                      past_limit_s=limit))
+
+
+def launchers(dev, drills="straggler,live,ingest,serving,crash",
+              live_ticks=4, live_tick=32, every=2):
+    """``elastic_drill`` at the reference's own sizes, and at once ``live``
+    with the oracle, checkpoints and a recording followed by ``live
+    --resume`` replaying it, each in a process of its own on the card, and
+    the same ``live`` run on the CPU, whose output count the card's must
+    equal.
+
+    Cut to keep the phase near 3 minutes, because every api-built stream
+    runtime runs the general O+ tick, which loops over the ready batch's
+    lanes and instances on the host with a device read a lane (ROADMAP.md
+    queue 3; ``--drill-times`` times each drill alone): the drills
+    ``recovery`` and ``recovery-kill``, which ran past 300 s on an NVIDIA
+    H100 80GB HBM3 at 700 W, which the CPU tests run at small sizes and
+    ``q1_recovery`` covers at full width with the fast tick; ``live``
+    from the reference's 24 ticks of 256 tuples to ``live_ticks`` of
+    ``live_tick``."""
+    import concurrent.futures
+    import tempfile
+
+    dev = torch.device(dev)
+    # the launchers' own default is the card; the CPU rehearsal asks
+    where = [] if dev.type == "cuda" else ["--device", "cpu"]
+    with tempfile.TemporaryDirectory() as d, \
+            concurrent.futures.ThreadPoolExecutor(3) as pool:
+        ck, rec = str(pathlib.Path(d) / "ck"), str(pathlib.Path(d) /
+                                                    "stream.npz")
+        size = ["--ticks", str(live_ticks), "--tick", str(live_tick), *where]
+
+        def live_pair():
+            first = run_launcher(
+                "live", [*size, "--oracle", "--checkpoint-dir", ck,
+                         "--checkpoint-every", str(every), "--record", rec],
+                timeout=600)
+            resume = run_launcher(
+                "live", [*size, "--resume", "--replay", rec,
+                         "--checkpoint-dir", ck], timeout=600)
+            return first, resume
+
+        drill_f = pool.submit(run_launcher, "elastic_drill",
+                              ["--drills", drills, *where], 600)
+        live_f = pool.submit(live_pair)
+        # the same live run on this host's CPU: the general tick on the
+        # card against its plain path (a host's numpy draws the stream)
+        cpu_f = pool.submit(run_launcher, "live",
+                            ["--ticks", str(live_ticks), "--tick",
+                             str(live_tick), "--oracle", "--device", "cpu"],
+                            600)
+        runs = [drill_f.result(), *live_f.result()]
+        cpu_run = cpu_f.result()
+    text = "\n".join(ln for r in runs for ln in r["summary"])
+    for want in ("[1] straggler drain: outputs identical=True",
+                 "outputs match static oracle=True",
+                 "outputs == single-gate oracle: True",
+                 "[3] crash drill: latest complete step = 10",
+                 "elastic drill OK", "outputs match static oracle = True",
+                 "live run OK", "live resume OK"):
+        assert want in text, (want, text)
+    restored = re.search(r"restored step (\d+)", text)
+    assert restored and int(restored.group(1)) > 0, text
+    count = re.compile(r"static oracle = True \((\d+) output tuples")
+    card_n = count.search("\n".join(runs[1]["summary"])).group(1)
+    cpu_n = count.search("\n".join(cpu_run["summary"])).group(1)
+    assert card_n == cpu_n, ("live: card and CPU outputs differ", card_n,
+                             cpu_n)
+    from repro_torch.kernels import dispatch
+    launches = {name: sum(r["launches"].get(name, 0) for r in runs)
+                for name in dispatch.registered()}
+    if dev.type == "cuda":
+        assert runs[0]["launches"]["flash_attention"] > 0, runs[0]["launches"]
+    return dict(phase="launchers", drills=drills.split(","),
+                cut=dict(drills=["recovery", "recovery-kill"],
+                         live=dict(ticks=live_ticks, tick=live_tick,
+                                   reference=dict(ticks=24, tick=256))),
+                checkpoint_every=every, runs=runs, live_outputs=int(card_n),
+                live_outputs_equal_to_cpu=True,
+                cpu_live_seconds=cpu_run["seconds"], launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# phases 10-11: the elastic serving tier at full width (qwen3-14b, rwkv6-7b)
 # ---------------------------------------------------------------------------
 
 SERVE_KERNEL = {"dense": "flash_attention", "rwkv": "linear_scan"}
@@ -2285,6 +2655,10 @@ def main(argv) -> int:
         print(card_line(), flush=True)
         scan_turns(argv[1])
         return 0
+    if argv[:1] == ["--drill-times"]:
+        print(card_line(), flush=True)
+        drill_times()
+        return 0
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build, dispatch
     import repro_torch.kernels.scalegate_merge.ops      # noqa: F401
@@ -2315,10 +2689,12 @@ def main(argv) -> int:
     # card run and reads them right after it.
     phases = []
     for run in (q1_wordcount, q3_scalejoin, q1_persistent, q3_persistent,
-                q1_ingest_tier,
+                q1_ingest_tier, q1_recovery, launchers,
                 functools.partial(serve_full_width, arch="qwen3-14b"),
                 functools.partial(serve_full_width, arch="rwkv6-7b")):
+        t0 = time.perf_counter()
         phases.append(run(dev))
+        phases[-1]["seconds"] = time.perf_counter() - t0
         emit(phases[-1])
     launches = {name: sum(ph["launches"][name] for ph in phases)
                 for name in dispatch.registered()}

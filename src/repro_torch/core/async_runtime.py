@@ -29,11 +29,14 @@ step loop runs each through the pipeline's persistent driver
 reconfiguration injected at its first tick, and one control-lane read
 (``switched.any()``, ``inst_load.sum(0)``) a super-batch.
 
+Fault tolerance: a ``checkpointer`` (``checkpoint.StreamCheckpointer``)
+is asked at every dispatch boundary, a single tick's or a
+``StagedSuper``'s, before the dispatch that overwrites the pipeline
+state; ``tick0`` offsets the tick ids of a resumed run so sink tick ids
+and checkpoint steps stay absolute across restarts.
+
 ``run_sync`` is the measured baseline: the same semantics as a plain host
 loop (generate, step, wait for the outputs).
-
-Left out of this port so far: the checkpointer hook with the resumed
-run's tick offset.
 """
 
 from __future__ import annotations
@@ -194,12 +197,14 @@ class AsyncStreamRuntime:
 
     def __init__(self, pipeline, source, sink=None, controller=None,
                  queue_cap: int = 4, metrics: Optional[MetricsBus] = None,
-                 super_batch: int = 1):
+                 super_batch: int = 1, checkpointer=None, tick0: int = 0):
         if super_batch < 1:
             raise ValueError(f"super_batch must be >= 1, got {super_batch}")
         self.super_batch = super_batch
         self.pipeline = pipeline
         self.source = source
+        self.checkpointer = checkpointer
+        self.tick0 = int(tick0)
         self.sink = sink if sink is not None else CollectSink()
         self.controller = controller
         self.queue = BoundedQueue(queue_cap)
@@ -236,8 +241,8 @@ class AsyncStreamRuntime:
                 if max_ticks is not None and i >= max_ticks:
                     break
                 with _obs.span("ingest.stage"):
-                    meta = tick_meta(b, i, n_inputs, k_virt, frontier,
-                                     with_hist=with_hist)
+                    meta = tick_meta(b, self.tick0 + i, n_inputs, k_virt,
+                                     frontier, with_hist=with_hist)
                     staged = self.pipeline.stage(b)
                 tl = _obs.exemplars()
                 if tl is not None:
@@ -284,8 +289,8 @@ class AsyncStreamRuntime:
             if group and key != gkey:
                 flush()
             gkey = key
-            metas.append(tick_meta(b, i, n_inputs, k_virt, frontier,
-                                   with_hist=with_hist))
+            metas.append(tick_meta(b, self.tick0 + i, n_inputs, k_virt,
+                                   frontier, with_hist=with_hist))
             tl = _obs.exemplars()
             if tl is not None:
                 ok = _np(b.valid) & ~_np(b.is_control)
@@ -394,6 +399,13 @@ class AsyncStreamRuntime:
                 idle_s = time.perf_counter() - t_wait
                 sup = isinstance(item, StagedSuper)
                 meta = self._combine_meta(item.metas) if sup else item.meta
+                if self.checkpointer is not None:
+                    # the boundary BEFORE this dispatch: the pipeline state
+                    # covers every tick < meta.tick_id; the capture copies
+                    # it to the host now, the disk write is asynchronous
+                    with _obs.span("runtime.checkpoint"):
+                        self.checkpointer.maybe_save(meta.tick_id,
+                                                     meta.frontier_before)
                 rc = self._decide(meta)
                 t0 = time.perf_counter()
                 with _obs.span("runtime.dispatch"):
@@ -442,6 +454,8 @@ class AsyncStreamRuntime:
             self.queue.close()
             self.metrics.stop()
             th.join(timeout=30)
+            if self.checkpointer is not None:
+                self.checkpointer.wait()   # never exit with a torn save
         if self._ingest_error is not None:
             o = _obs.get()
             if o is not None:

@@ -11,7 +11,7 @@ bounded-channel backpressure root→leaf→source, and a drop-in iterable
 source for ``AsyncStreamRuntime``.
 """
 
-from repro_torch.ingest.leaf import LeafGate, LeafOut
+from repro_torch.ingest.leaf import LeafGate, LeafOut, LeafSnap
 from repro_torch.ingest.partitioner import SourcePartitioner
 from repro_torch.ingest.root import RootMerge
 from repro_torch.ingest.tier import (IngestStats, IngestTier, LeafFailure,
@@ -20,6 +20,6 @@ from repro_torch.ingest.tier import (IngestStats, IngestTier, LeafFailure,
 
 __all__ = [
     "IngestStats", "IngestTier", "LeafFailure", "LeafGate", "LeafOut",
-    "RootMerge", "SourcePartitioner", "collect_tuples", "emitted_taus",
-    "single_gate_stream",
+    "LeafSnap", "RootMerge", "SourcePartitioner", "collect_tuples",
+    "emitted_taus", "single_gate_stream",
 ]

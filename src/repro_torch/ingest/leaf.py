@@ -106,6 +106,18 @@ class LeafOut:
         return int(self.ready["tau"].shape[0])
 
 
+@dataclasses.dataclass
+class LeafSnap:
+    """One leaf's answer to a snapshot round: its full exported gate state
+    (picklable numpy only: it crosses process channels like any LeafOut).
+    Riding the same round stream as tick messages is what pins the snapshot
+    to an exact tick boundary: the state is captured after the leaf pushed
+    round ``round_id - 1`` and before it sees the next tick."""
+    leaf_id: int
+    round_id: int
+    state: Dict
+
+
 class LeafGate:
     """The leaf state machine; drivable inline, from a thread, or from a
     child process (see the worker loops below).  Its gate lives on
@@ -113,7 +125,8 @@ class LeafGate:
 
     def __init__(self, leaf_id: int, n_sources: int, owned: np.ndarray,
                  cap: int, kmax: int, payload_width: int,
-                 chunk: Optional[int] = None, device=None):
+                 chunk: Optional[int] = None, device=None,
+                 state: Optional[Dict] = None):
         self.leaf_id = leaf_id
         self.n_sources = n_sources
         self.kmax = kmax
@@ -121,9 +134,19 @@ class LeafGate:
         self.device = _device.resolve(device)
         # chunk width: the combined merge size is cap + chunk
         self.chunk = chunk or cap
-        self.state = scalegate.init_scalegate(
-            n_sources, cap, kmax, payload_width,
-            active=np.asarray(owned, bool), device=self.device)
+        if state is not None:
+            # restore: stash / frontier / active mask all come from the
+            # snapshot (the owned mask is part of the exported state)
+            self.state = scalegate.import_np(state, self.device)
+        else:
+            self.state = scalegate.init_scalegate(
+                n_sources, cap, kmax, payload_width,
+                active=np.asarray(owned, bool), device=self.device)
+
+    def export_state(self) -> Dict:
+        """Picklable numpy snapshot of the gate (stash + frontier +
+        overflow); ``LeafGate(..., state=...)`` restores it exactly."""
+        return scalegate.export_np(self.state)
 
     # -- per-round work ------------------------------------------------------
     def push_round(self, round_id: int, slice_np: Optional[Dict] = None,
@@ -191,8 +214,9 @@ def run_gate_loop(gate: LeafGate, recv, send, ship_obs: bool = False) -> None:
     stop/flush; shared verbatim by thread and process workers.
 
     Messages: ``("tick", round, slice_np)`` | ``("cmd", round, ops)`` |
-    ``("stop",)``.  Every tick/cmd message produces exactly one
-    ``LeafOut`` via ``send``: the root's round barrier counts on it.
+    ``("snap", round)`` | ``("stop",)``.  Every tick/cmd/snap message
+    produces exactly one answer (``LeafOut`` / ``LeafSnap``) via ``send``:
+    the root's round barrier counts on it.
 
     ``ship_obs=True`` (process workers only) attaches the child's drained
     observability payload to each outgoing ``LeafOut``; thread workers
@@ -235,6 +259,8 @@ def run_gate_loop(gate: LeafGate, recv, send, ship_obs: bool = False) -> None:
             answer(out)
             if leaving:
                 break
+        elif kind == "snap":
+            send(LeafSnap(gate.leaf_id, msg[1], gate.export_state()))
         else:
             raise ValueError(f"unknown message {msg!r}")
 
@@ -262,7 +288,7 @@ def process_worker_main(cfg: Dict, in_q, out_q) -> None:
     gate = LeafGate(cfg["leaf_id"], cfg["n_sources"],
                     np.asarray(cfg["owned"], bool), cfg["cap"], cfg["kmax"],
                     cfg["payload_width"], chunk=cfg.get("chunk"),
-                    device=cfg["device"])
+                    device=cfg["device"], state=cfg.get("state"))
 
     def recv():
         msg = in_q.get()

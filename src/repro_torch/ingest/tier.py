@@ -2,9 +2,7 @@
 
 Held against ``src/repro/ingest/tier.py``.  Every gate of the tier (leaves
 and root) lives on ``device`` (default: the card); process workers
-resolve it themselves in their spawned child.  The reference's snapshot
-rounds (``snapshot_every``) and ``restore=`` come with the checkpoint
-slice.
+resolve it themselves in their spawned child.
 
 Topology (paper §6's elastic/hierarchical TB)::
 
@@ -39,6 +37,14 @@ drain from the losing leaf's flush; the root clamps the gaining leaf's
 frontier to gamma (`wm.clamp_frontier`) so total order survives the move.
 Attach/detach latency (command issued → membership round merged at the
 root) is measured per command.
+
+Snapshots: ``snapshot_every=K`` inserts a barrier "snap" round after every
+K-th routed source tick; each leaf answers it with its exported gate
+state (``LeafSnap``, numpy), and the consumer assembles the tier-wide cut
+(``pop_snapshot``) that ``checkpoint.StreamCheckpointer`` saves.
+``restore=`` rebuilds the tier from such a cut: routing, frontier and
+counters, every leaf gate (on its own device, in its own process for
+process workers) and the root gate.
 """
 
 from __future__ import annotations
@@ -93,10 +99,17 @@ class _Command:
 @dataclasses.dataclass
 class _RoundRec:
     round_id: int
-    kind: str                 # "tick" | "reconfig" | "final"
+    kind: str                 # "tick" | "reconfig" | "final" | "snap"
     leaves: Tuple[int, ...]   # who must answer this round
     root_ops: Tuple = ()
     cmd: Optional[_Command] = None
+    # snap rounds only: the router-side cut captured at build time (the
+    # router runs ahead of the consumer, so consumer-side reads would race)
+    snap_tick: Optional[int] = None       # source ticks routed before cut
+    snap_frontier: Optional[np.ndarray] = None
+    snap_assignment: Optional[List[int]] = None
+    snap_tuples_in: int = 0
+    snap_next_leaf_id: int = 0
 
 
 @dataclasses.dataclass
@@ -156,7 +169,8 @@ class IngestTier:
                  max_leaves: Optional[int] = None, record: bool = False,
                  schedule=None, out_pad: int = MIN_PAD,
                  root_device: Optional[bool] = None,
-                 root_check_every: int = 8, device=None):
+                 root_check_every: int = 8, device=None,
+                 snapshot_every: int = 0, restore: Optional[Dict] = None):
         assert worker in ("thread", "process", "inline"), worker
         assert n_leaves >= 1
         self.device = _device.resolve(device)
@@ -172,11 +186,32 @@ class IngestTier:
         self.out_pad = out_pad
         self.root_device = root_device
         self.root_check_every = root_check_every
-        self.part = SourcePartitioner(n_sources, range(n_leaves))
-        self.frontier = np.zeros((n_sources,), np.int64)
-        self._next_leaf_id = n_leaves
-        self._tick_index = 0
-        self.tuples_in = 0
+        # snapshot_every=K inserts a barrier "snap" round after every K-th
+        # routed source tick: every leaf answers with its exported state at
+        # that exact boundary, so the assembled snapshot is consistent
+        # across the whole tier by construction (no leaf has seen tick K
+        # when it answers, every leaf has pushed tick K-1)
+        self.snapshot_every = snapshot_every
+        self._snapshots: Dict[int, Dict] = {}   # emitted_rounds -> payload
+        self._restore = restore
+        if restore is not None:
+            self.part = SourcePartitioner(n_sources, restore["leaves"])
+            self.part.assignment[:] = np.asarray(restore["assignment"],
+                                                 np.int64)
+            self.frontier = np.asarray(restore["frontier"],
+                                       np.int64).copy()
+            self._next_leaf_id = int(restore["next_leaf_id"])
+            self._tick_index = int(restore["source_ticks"])
+            self._rounds_emitted = int(restore["emitted_rounds"])
+            self.tuples_in = int(restore.get("tuples_in", 0))
+        else:
+            self.part = SourcePartitioner(n_sources, range(n_leaves))
+            self.frontier = np.zeros((n_sources,), np.int64)
+            self._next_leaf_id = n_leaves
+            self._tick_index = 0
+            self._rounds_emitted = 0
+            self.tuples_in = 0
+        self._last_snap_tick = self._tick_index
         self.emitted: Optional[List[T.TupleBatch]] = [] if record else None
 
         self._handles: Dict[int, _Handle] = {}
@@ -245,9 +280,24 @@ class IngestTier:
         if first is not None:
             self._it = itertools.chain([first], self._it)
             self._kmax, self._pw = first.kmax, first.payload_width
+        elif self._restore is not None:
+            # empty replay suffix (the snapshot covered the whole stream):
+            # the gates still need their exact restored shapes to flush
+            self._stream_done = True
+            st = next(iter(self._restore["leaf_states"].values()))
+            self._kmax = int(st["stash"]["keys"].shape[1])
+            self._pw = int(st["stash"]["payload"].shape[1])
         else:
             self._stream_done = True
             self._kmax, self._pw = 1, 1
+        if self._restore is not None:
+            # restore dimensions must match the snapshotted stream's (the
+            # RuntimeConfig in the manifest rebuilds an identical stack)
+            st = next(iter(self._restore["leaf_states"].values()))
+            want_kmax = st["stash"]["keys"].shape[1]
+            if want_kmax != self._kmax:
+                raise ValueError(f"restored leaf gates hold kmax "
+                                 f"{want_kmax}, the stream {self._kmax}")
         if self.worker == "process":
             import multiprocessing as mp
             self._ctx = mp.get_context("spawn")
@@ -256,26 +306,33 @@ class IngestTier:
                               out_pad=self.out_pad, device=self.root_device,
                               check_every=self.root_check_every,
                               torch_device=self.device)
+        if self._restore is not None:
+            self.root.import_state(self._restore["root"])
         if self.worker != "inline":
             self._rounds = BoundedQueue(max(2 * self.chan_cap, 4))
             cap = max(4, (self.chan_cap + 2) * self.max_leaves)
             self._root_in = make_channel(self.worker, cap, self._ctx)
+        restore_states = ({} if self._restore is None
+                          else self._restore["leaf_states"])
         for leaf_id in self.part.leaves:
-            self._spawn(leaf_id, self.part.owned_mask(leaf_id))
+            self._spawn(leaf_id, self.part.owned_mask(leaf_id),
+                        state=restore_states.get(leaf_id))
         if self.worker != "inline":
             self._router = threading.Thread(target=self._route_loop,
                                             daemon=True)
             self._router.start()
 
-    def _spawn(self, leaf_id: int, owned: np.ndarray) -> None:
+    def _spawn(self, leaf_id: int, owned: np.ndarray,
+               state: Optional[Dict] = None) -> None:
         h = _Handle(leaf_id)
         if self.worker == "inline":
             h.gate = L.LeafGate(leaf_id, self.n_sources, owned,
                                 self.leaf_cap, self._kmax, self._pw,
-                                device=self.device)
+                                device=self.device, state=state)
         elif self.worker == "thread":
             gate = L.LeafGate(leaf_id, self.n_sources, owned, self.leaf_cap,
-                              self._kmax, self._pw, device=self.device)
+                              self._kmax, self._pw, device=self.device,
+                              state=state)
             h.chan = make_channel("thread", self.chan_cap)
             h.thread = threading.Thread(
                 target=L.run_gate_loop,
@@ -285,7 +342,7 @@ class IngestTier:
             cfg = dict(leaf_id=leaf_id, n_sources=self.n_sources,
                        owned=np.asarray(owned, bool), cap=self.leaf_cap,
                        kmax=self._kmax, payload_width=self._pw,
-                       device=str(self.device))
+                       device=str(self.device), state=state)
             o = _obs.get()
             if o is not None:
                 # the child installs its own Obs with the parent's config
@@ -358,6 +415,25 @@ class IngestTier:
     def _build_next(self):
         """Next (rec, msgs_by_leaf), or None when the stream is fully
         routed and flushed."""
+        if (self.snapshot_every and not self._flushed
+                and self._tick_index > self._last_snap_tick
+                and self._tick_index % self.snapshot_every == 0):
+            # barrier snapshot round at the K-tick boundary, built BEFORE
+            # any due membership command so the captured cut excludes it
+            # (commands are controller intents, re-issued after a restore,
+            # not snapshotted state)
+            self._last_snap_tick = self._tick_index
+            with self._cmd_lock:
+                next_leaf_id = self._next_leaf_id
+            rec = _RoundRec(self._round, "snap", self.part.leaves,
+                            snap_tick=self._tick_index,
+                            snap_frontier=self.frontier.copy(),
+                            snap_assignment=self.part.assignment.tolist(),
+                            snap_tuples_in=self.tuples_in,
+                            snap_next_leaf_id=next_leaf_id)
+            msgs = {l: ("snap", self._round, None) for l in self.part.leaves}
+            self._round += 1
+            return rec, msgs
         cmd = self._pop_due_cmd()
         if cmd is not None:
             out = self._build_reconfig(cmd)
@@ -457,12 +533,53 @@ class IngestTier:
             kind, r, payload = msgs[l]
             if kind == "tick":
                 outs.append(h.gate.push_round(r, payload))
+            elif kind == "snap":
+                outs.append(L.LeafSnap(l, r, h.gate.export_state()))
             else:
                 leaving = h.gate.apply(payload)
                 outs.append(h.gate.push_round(r, None, final=leaving))
                 if leaving:
                     del self._handles[l]
         return outs
+
+    # -- snapshots ------------------------------------------------------------
+    def _store_snapshot(self, rec: _RoundRec, snaps: List) -> None:
+        """Assemble the tier-wide cut: every leaf's state at the barrier,
+        the root gate (owned by the consumer thread, so between-rounds is
+        safe), and the router-side routing state captured when the snap
+        round was built.  The assignment too: the reference reads it here,
+        where a thread or process router may already have applied a later
+        membership command.  Keyed by ``emitted_rounds``, the number of merged
+        rounds the consumer (pipeline) has seen before this cut, which is
+        what aligns it with the runtime's tick ids."""
+        self._snapshots[self._rounds_emitted] = {
+            "leaves": [int(l) for l in rec.leaves],
+            "assignment": list(rec.snap_assignment),
+            "next_leaf_id": int(rec.snap_next_leaf_id),
+            "frontier": np.asarray(rec.snap_frontier, np.int64),
+            "source_ticks": int(rec.snap_tick),
+            "emitted_rounds": int(self._rounds_emitted),
+            "tuples_in": int(rec.snap_tuples_in),
+            "leaf_states": {int(s.leaf_id): s.state for s in snaps},
+            "root": self.root.export_state(),
+        }
+
+    def pop_snapshot(self, emitted_rounds: int) -> Optional[Dict]:
+        """The snapshot whose cut sits exactly before merged round
+        ``emitted_rounds`` (and drop any older ones); None if not taken.
+        The consumer thread stores, any thread may pop: single dict
+        operations under the GIL, plus the runtime's happens-before (the
+        tier always collects the snap round before yielding the next
+        tick)."""
+        snap = self._snapshots.pop(emitted_rounds, None)
+        for k in [k for k in self._snapshots if k < emitted_rounds]:
+            self._snapshots.pop(k, None)
+        return snap
+
+    def latest_snapshot(self) -> Optional[Dict]:
+        if not self._snapshots:
+            return None
+        return self._snapshots[max(self._snapshots)]
 
     def __iter__(self):
         self._start()
@@ -482,6 +599,12 @@ class IngestTier:
                             raise self._router_error
                         break
                     outs = self._collect(rec)
+                if rec.kind == "snap":
+                    self._store_snapshot(rec, outs)
+                    _obs.event("tier_snapshot", round_id=rec.round_id,
+                               source_ticks=rec.snap_tick,
+                               emitted_rounds=self._rounds_emitted)
+                    continue               # snapshots merge nothing
                 for lo in outs:            # cross-process obs piggybacks
                     if lo.obs is not None:
                         _obs.ingest_payload(lo.obs)
@@ -507,6 +630,7 @@ class IngestTier:
                                leaves=[int(l) for l in self.part.leaves])
                 if self.emitted is not None:
                     self.emitted.append(out)
+                self._rounds_emitted += 1
                 yield out
         finally:
             self._shutdown()

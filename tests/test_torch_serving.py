@@ -298,7 +298,7 @@ def test_unported_options_refuse(tmp_path):
     from repro_torch.api import RuntimeConfig, build_runtime
     cfg = RuntimeConfig(serving=ServingConfig(device="cpu"),
                         checkpoint_dir=str(tmp_path), checkpoint_every=4)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    with pytest.raises(ValueError, match="checkpoint"):
         build_runtime(cfg, [])
     with pytest.raises(NotImplementedError, match="mesh"):
         build_runtime(RuntimeConfig(mesh_devices=2, device="cpu"), [])
