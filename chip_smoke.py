@@ -54,8 +54,10 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
 6. ``q3_persistent`` — the Q3 fast join path in 3 super-batches of 4,
                  the reconfiguration at tick 6: equal to the eager card
                  run and, as unordered pairs with equal comparisons, to
-                 the CPU; then the general O+ tick, whose capture fails,
-                 refused with ``GraphCaptureError``.
+                 the CPU; then the general O+ tick (``api.make_pipeline``
+                 at ``live``'s shape, 65 lanes x 16 instances) captured
+                 in one graph and replayed, equal tick for tick to its
+                 eager card run and to the CPU, eager against the graph.
 7. ``q1_ingest_tier`` — the Q1 stream over 8 sources through the ingest
                  tier (4 thread leaves, the fused root merge, one host
                  joining and one leaving) into ``AsyncStreamRuntime`` over
@@ -80,12 +82,16 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
                  the replayed outputs equal the oracle's exactly; bytes,
                  capture, write and restore ms, detect→first output.
 9. ``launchers`` — ``repro_torch.launch.elastic_drill`` (straggler,
-                 live, ingest, serving, crash) and ``live`` with its
-                 oracle, checkpoints and a recording followed by ``live
+                 live, ingest, serving, crash, recovery, recovery-kill)
+                 and ``live`` at 24 ticks of 256 with its oracle,
+                 checkpoints and a recording followed by ``live
                  --resume``, each a process of its own on the card, and
                  the same ``live`` run on the CPU with an equal output
-                 count; the recovery drills are cut (``launchers``).
-10-11. ``serve_qwen3_14b``, ``serve_rwkv6_7b`` — each model at its published
+                 count.
+10-12. ``serve_qwen3_14b``, ``serve_rwkv6_7b``, ``serve_deepseek_moe_16b``
+                 (the MoE's one-shard ``vsn`` dispatch, each decode lane
+                 routed alone; its dropped tokens counted, none in
+                 decode) — each model at its published
                  width and depth in bfloat16 (random parameters drawn on the
                  card), one after the other, through ``build_runtime`` ->
                  ``AsyncStreamRuntime`` -> ``ServingPipeline`` ->
@@ -97,7 +103,7 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
                  token-identical to ``reference_decode`` (see
                  ``serve_full_width``).
 
-Phases 3 to 11 are the main path: each zeroes the launch counts right
+Phases 3 to 12 are the main path: each zeroes the launch counts right
 before its card run and reads them right after (``launchers`` reads each
 of its processes' counts), and the ``{"kernels": [...]}`` line reports
 their sum with phase 2's times.  Each phase's line holds its
@@ -115,7 +121,8 @@ times, in another checkout and in this one, in turns (parent, this, this,
 parent) on one card: linear_scan's rows (decode, prefill T 128 and T
 1024), segment_aggregate as ``aggregate._scatter_reduce`` issues it at
 Q1's Zipf shape, window_join as ``join.band_join_counts`` issues it at
-the Q3 and bench shapes, and Q1's eager tick (``turn_rows``).
+the Q3 and bench shapes, Q1's eager tick and the general O+ tick's
+(``turn_rows``).
 
     python3 chip_smoke.py --drill-times
 
@@ -190,9 +197,12 @@ def device_events(fn, setup=None, reps: int = 20):
     host time of a Python wrapper."""
     from torch.profiler import ProfilerActivity, profile
     fn(*(setup() if setup else ()))
-    # now and then a profiling session records no device activity at all;
-    # such a session is taken again, up to three times
-    for _ in range(3):
+    # now and then a profiling session records no device activity at all
+    # (three in a row once, NVIDIA H100 80GB HBM3); such a session is taken
+    # again after a pause, up to six times
+    for attempt in range(6):
+        if attempt:
+            time.sleep(0.5)
         args = [setup() if setup else () for _ in range(reps)]
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -896,7 +906,9 @@ def check_window_join(dev):
 def check_flash_attention(dev):
     """The kernel against its plain version, both bfloat16 bodies and the
     float32 one: the qwen3-14b prefill and decode shapes (40 query heads
-    over 8 KV heads, D 128), stablelm-12b's D 160 (n_rep 4), gemma3's
+    over 8 KV heads, D 128), deepseek-moe-16b's 16 over 16 (n_rep 1) at
+    decode over a pool and a prefill into it, stablelm-12b's D 160 (n_rep
+    4), gemma3's
     D 256 (n_rep 2) with its 1024 window at decode and prefill, decode
     depths at the 32-key chunk edges (0, 31, 32, 33, 1023) over a
     permuted slot pool, rows that see no key (a whole lane, one head of a
@@ -986,6 +998,16 @@ def check_flash_attention(dev):
         compare(f"prefill_d160_{tag}", rnd(1, 32, 128, 160, dtype=dt),
                 rnd(1, 8, 128, 160, dtype=dt), rnd(1, 8, 128, 160, dtype=dt),
                 n_rep=4)
+        # deepseek-moe-16b: 16 query heads over 16 KV heads (n_rep 1), D
+        # 128; a decode round over a permuted pool at mixed depths, and a
+        # 128-token prefill into a slot of it (the SIMT body in float32)
+        ds_pool = [cache(8, 1024, 16, 128, dt) for _ in range(2)]
+        compare(f"deepseek_decode_{tag}", decode_q(8, 16, 128, dt), *ds_pool,
+                q_offset=ints([144, 0, 31, 32, 1023, 500, 159, 7]),
+                kv_index=ints([3, 0, 7, 6, 1, 5, 2, 4]))
+        compare(f"deepseek_prefill_{tag}",
+                rnd(1, 128, 16, 128, dtype=dt).transpose(1, 2), *ds_pool,
+                q_offset=ints([0]), kv_index=ints([6]))
     compare("tpu_signature_f32", rnd(4, 128, 128), rnd(4, 128, 128),
             rnd(4, 128, 128))
     # bfloat16 only: the split-KV decode's chunk edges over a permuted pool
@@ -1030,27 +1052,28 @@ def check_flash_attention(dev):
                 q_offset=depth)
         del q, kc, vc
 
-    def timed(b, sq, at):
+    def timed(b, sq, at, hq=40, hkv=8):
         """bf16 kernel, plain version, SDPA and bound for ``b`` lanes of
-        ``sq`` queries of qwen3-14b (40 heads over 8, D 128) at depth ``at``
-        of a 1024-slot cache, q_offset per lane as the model passes it;
-        SDPA gets the visible keys with the KV heads repeated (outside the
-        timing) and is_causal for the prefill."""
-        q = rnd(b, sq, 40, 128, dtype=bf16).transpose(1, 2)
-        kc, vc = (cache(b, 1024, 8, 128, bf16) for _ in range(2))
+        ``sq`` queries (qwen3-14b's 40 heads over 8 by default, D 128) at
+        depth ``at`` of a 1024-slot cache, q_offset per lane as the model
+        passes it; SDPA gets the visible keys with the KV heads repeated
+        (outside the timing) and is_causal for the prefill."""
+        rep = hq // hkv
+        q = rnd(b, sq, hq, 128, dtype=bf16).transpose(1, 2)
+        kc, vc = (cache(b, 1024, hkv, 128, bf16) for _ in range(2))
         off = ints(np.full(b, at))
-        run = lambda f: f(q, kc, vc, n_rep=5, q_offset=off)
+        run = lambda f: f(q, kc, vc, n_rep=rep, q_offset=off)
         n_vis = at + sq
-        ke, ve = (x[:, :, :n_vis].repeat_interleave(5, dim=1).contiguous()
+        ke, ve = (x[:, :, :n_vis].repeat_interleave(rep, dim=1).contiguous()
                   for x in (kc, vc))
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        visible = b * 40 * (sq * at + sq * (sq + 1) // 2)  # (query, key)
-        ms, by = bound(2 * (2 * b * 40 * sq * 128)          # q in, out
-                       + 2 * (2 * b * 8 * n_vis * 128)      # visible K, V
+        visible = b * hq * (sq * at + sq * (sq + 1) // 2)  # (query, key)
+        ms, by = bound(2 * (2 * b * hq * sq * 128)          # q in, out
+                       + 2 * (2 * b * hkv * n_vis * 128)    # visible K, V
                        + 4 * b, bf16_ops=4 * visible * 128)
         return dict(
-            shape=f"q [{b}, 40, {sq}, 128] bf16 at depth {at} of a "
-                  f"[{b}, 1024, 8, 128] cache, n_rep 5",
+            shape=f"q [{b}, {hq}, {sq}, 128] bf16 at depth {at} of a "
+                  f"[{b}, 1024, {hkv}, 128] cache, n_rep {rep}",
             **timings(lambda: run(flash_attention_op),
                       lambda: run(flash_attention_plain),
                       lambda: sdpa(q, ke, ve, is_causal=at == 0)),
@@ -1089,6 +1112,8 @@ def check_flash_attention(dev):
                 errors=errs, limit_used=max(used.values()),
                 limit_used_by_case=used,
                 **timed(8, 1, 144), prefill=timed(1, 128, 0),
+                deepseek=dict(decode=timed(8, 1, 144, 16, 16),
+                              prefill=timed(1, 128, 0, 16, 16)),
                 decode_split_ms=sweep)
 
 
@@ -1200,18 +1225,33 @@ def q1_tick_row(dev) -> dict:
                           kernel=MERGE_KERNEL_SYMBOL)
 
 
+def general_tick_row(dev) -> dict:
+    """The general O+ tick's eager step at ``live``'s cut shape (65 lanes x
+    16 instances, ``general_pipeline``), after two warm-up ticks:
+    ``device_profile``'s wall, device operations and host syncs a tick
+    over two ticks."""
+    batches = general_batches(4, 32)
+    pipe = general_pipeline(dev)
+    for b in batches[:2]:
+        pipe.step(b)
+    torch.cuda.synchronize()
+    return device_profile(lambda i: pipe.step(batches[2 + i]), 2,
+                          kernel=MERGE_KERNEL_SYMBOL)
+
+
 def turn_rows(dev) -> dict:
     """The rows ``--scan-turns`` times in each tree, on the same data in
     every run: linear_scan's three, segment_aggregate through
     ``aggregate._scatter_reduce`` at Q1's Zipf shape, window_join
-    through ``join.band_join_counts`` at ``JOIN_TIMED``'s shapes, and
-    Q1's eager tick (``q1_tick_row``); the same API in both trees, so
-    each is timed where the main path pays it."""
+    through ``join.band_join_counts`` at ``JOIN_TIMED``'s shapes, Q1's
+    eager tick (``q1_tick_row``) and the general O+ tick's
+    (``general_tick_row``); the same API in both trees, so each is timed
+    where the main path pays it."""
     from repro_torch.core import join
     rows = dict(linear_scan=scan_timed_rows(dev),
                 segment_aggregate=call_row(q1_zipf_call(dev),
                                            "segment_aggregate"),
-                q1_tick=q1_tick_row(dev))
+                q1_tick=q1_tick_row(dev), general_tick=general_tick_row(dev))
     rows["window_join"] = {}
     for name, shape in JOIN_TIMED.items():
         st, b, ws = fill_join_state(*shape, dev)
@@ -1782,12 +1822,11 @@ def q3_persistent(dev, k=4):
     reconfiguration at tick 6 (``reconfig_at`` 2 of the second): equal to
     the eager card run tick for tick, and to the CPU's persistent loop as
     unordered pairs, with equal total comparisons.  Ends with the general
-    O+ tick, which the card refuses to capture."""
-    from repro_torch.core import aggregate as agg
+    O+ tick captured and replayed as well (``general_persistent``)."""
     from repro_torch.core import join
     from repro_torch.core.controller import (Reconfiguration, active_mask,
                                              balanced_fmu)
-    from repro_torch.core.runtime import GraphCaptureError, VSNPipeline
+    from repro_torch.core.runtime import VSNPipeline
     from repro_torch.core.vsn import merge_fast_state
     from repro_torch.core.windows import WindowSpec
     from repro_torch.data import datagen
@@ -1867,24 +1906,89 @@ def q3_persistent(dev, k=4):
         next(iter(graphs.values()))["replays"] == N_TICKS // k - 1, graphs
     out["graphs"] = graph_summary(pipe)
 
-    # The general O+ tick reads its expiry condition back to the host, so
-    # its capture fails, and the call raises rather than run eagerly.
-    small = agg.count_aggregate(WindowSpec(wa=10, ws=20, wt="multi"), 16,
-                                out_cap=64)
-    general = VSNPipeline(small, n_max=2, n_active=2, stash_cap=16,
-                          device=dev)
-    ticks = list(datagen.tweets(np.random.default_rng(1), n_ticks=2, tick=4,
-                                words_per_tweet=2, vocab=50, k_virt=16,
-                                rate_per_tick=10, device="cpu"))
-    general.ensure_gate_for(ticks[0].kmax, ticks[0].payload_width)
-    before = general.sg
-    try:
-        general.run_persistent(ticks)
-    except GraphCaptureError as e:
-        out["general_tick_refused"] = str(e)[:300]
-    else:
-        raise AssertionError("the general tick was not refused on the card")
-    assert general.sg is before and not general.persistent_graphs()
+    out["general_tick"] = general_persistent(dev)
+    return out
+
+
+def general_batches(n_ticks, tick, seed=11):
+    """``launch/live.py``'s stream at ``tick`` tuples a tick: tweets over
+    256 keys, each tick shifted so the stream stays sorted."""
+    from repro_torch.data import datagen
+    rng = np.random.default_rng(seed)
+    out, base = [], 0
+    for _ in range(n_ticks):
+        (b,) = datagen.tweets(rng, n_ticks=1, tick=tick, words_per_tweet=3,
+                              vocab=2000, k_virt=256, rate_per_tick=150,
+                              device="cpu")
+        b = dataclasses.replace(b, tau=b.tau + base)
+        base = int(b.tau.max()) + 1
+        out.append(b)
+    return out
+
+
+def general_pipeline(device, tick=32):
+    """``api.make_pipeline`` at ``live``'s configuration (count, WA 500,
+    WS 1000, K 256, 16 instances, a stash of ``tick``): the general O+
+    tick over ``2 * tick + 1`` lanes (65 at ``live``'s cut size)."""
+    from repro_torch import api
+    return api.make_pipeline(api.RuntimeConfig(
+        op="count", wa=500, ws=1000, wt="multi", k_virt=256, out_cap=1024,
+        extra_slots=2, n_max=16, n_active=2, stash_cap=tick,
+        device=str(device)))
+
+
+def general_persistent(dev, k=4, n_ticks=12, rc_at=6):
+    """The general O+ tick (``general_pipeline``) through
+    ``run_persistent`` in super-batches of ``k``, 2 -> 16 instances at
+    tick ``rc_at``: one graph captured and replayed (the replays under
+    ``set_sync_debug_mode("error")``), equal tick for tick to the eager
+    card run and to the CPU's plain loop; eager against the graph, ms a
+    tick and ``device_profile``'s device operations and host syncs a
+    tick."""
+    from repro_torch.core.controller import (Reconfiguration, active_mask,
+                                             balanced_fmu)
+    from repro_torch.io.sinks import flatten_outputs
+    dev = torch.device(dev)
+    batches = general_batches(n_ticks, 32)
+    rc = Reconfiguration(epoch=1, n_active=16, fmu=balanced_fmu(256, 16, 16),
+                         active=active_mask(16, 16))
+    eager = general_pipeline(dev)
+    eager_rows, eager_s = [], []
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        o1, o2, sw, load = eager.step_staged(
+            b, reconfig=rc if i == rc_at else None)
+        eager_rows.append((sorted(flatten_outputs(o1) + flatten_outputs(o2)),
+                           bool(sw), load.tolist()))
+        eager_s.append(time.perf_counter() - t0)
+    cpu_rows = persistent_run(general_pipeline("cpu"), batches, k, rc,
+                              rc_at)[0]
+    pipe = general_pipeline(dev)
+    rows, seconds, overflow = persistent_run(pipe, batches, k, rc, rc_at,
+                                             sync_free=dev.type == "cuda")
+    for i, (got, want, cpu) in enumerate(zip(rows, eager_rows, cpu_rows)):
+        if not got == want == cpu:
+            raise AssertionError(f"general tick {i}: the graph, the eager "
+                                 f"card run and the CPU differ")
+    assert sum(r[1] for r in rows) == 1 and overflow == 0
+    assert sum(len(r[0]) for r in rows) > 0
+    out = dict(lanes=2 * 32 + 1, instances=16, ticks=n_ticks,
+               super_batch=k, reconfig_tick=rc_at, equal_to_eager=True,
+               equal_to_cpu=True, outputs=sum(len(r[0]) for r in rows),
+               eager_ms_per_tick=1e3 * statistics.median(eager_s[2:]),
+               persistent_ms_per_tick=1e3 * statistics.median(seconds[1:])
+               / k, first_call_s=seconds[0])
+    if dev.type != "cuda":
+        return out
+    graphs = pipe.persistent_graphs()
+    assert len(graphs) == 1 and \
+        next(iter(graphs.values()))["replays"] == n_ticks // k - 1, graphs
+    out["graphs"] = graph_summary(pipe)
+    more = general_batches(n_ticks + 8, 32)[n_ticks:]
+    out["eager_profile"] = device_profile(
+        lambda i: eager.step_staged(more[i]), 4)
+    out["persistent_profile"] = device_profile(
+        lambda i: pipe.run_persistent(more[4 * i:4 * i + 4]), 1)
     return out
 
 
@@ -2338,7 +2442,7 @@ def run_launcher(module: str, argv, timeout: float):
 
 def drill_times(limits=(("crash", 90), ("serving", 120), ("ingest", 120),
                         ("straggler", 200), ("live", 240),
-                        ("recovery", 300))) -> None:
+                        ("recovery", 300), ("recovery-kill", 300))) -> None:
     """Each drill of ``elastic_drill`` alone on the card, in a process of
     its own, with its seconds; a drill past its limit (seconds) is killed
     and reported so.  One JSON line a drill.
@@ -2357,23 +2461,16 @@ def drill_times(limits=(("crash", 90), ("serving", 120), ("ingest", 120),
                       past_limit_s=limit))
 
 
-def launchers(dev, drills="straggler,live,ingest,serving,crash",
-              live_ticks=4, live_tick=32, every=2):
-    """``elastic_drill`` at the reference's own sizes, and at once ``live``
+def launchers(dev, drills="straggler,live,ingest,serving,crash,recovery,"
+              "recovery-kill", live_ticks=24, live_tick=256, every=2):
+    """``elastic_drill`` at the reference's own sizes, every drill but the
+    mesh's, and at once ``live`` at its reference size (24 ticks of 256)
     with the oracle, checkpoints and a recording followed by ``live
     --resume`` replaying it, each in a process of its own on the card, and
     the same ``live`` run on the CPU, whose output count the card's must
-    equal.
-
-    Cut to keep the phase near 3 minutes, because every api-built stream
-    runtime runs the general O+ tick, which loops over the ready batch's
-    lanes and instances on the host with a device read a lane (ROADMAP.md
-    queue 3; ``--drill-times`` times each drill alone): the drills
-    ``recovery`` and ``recovery-kill``, which ran past 300 s on an NVIDIA
-    H100 80GB HBM3 at 700 W, which the CPU tests run at small sizes and
-    ``q1_recovery`` covers at full width with the fast tick; ``live``
-    from the reference's 24 ticks of 256 tuples to ``live_ticks`` of
-    ``live_tick``."""
+    equal; and ``live --super-batch 4`` (8 ticks of 32), the general tick
+    in the persistent driver's graphs, equal to its oracle.  Nothing is
+    cut (``--drill-times`` times each drill alone)."""
     import concurrent.futures
     import tempfile
 
@@ -2381,7 +2478,7 @@ def launchers(dev, drills="straggler,live,ingest,serving,crash",
     # the launchers' own default is the card; the CPU rehearsal asks
     where = [] if dev.type == "cuda" else ["--device", "cpu"]
     with tempfile.TemporaryDirectory() as d, \
-            concurrent.futures.ThreadPoolExecutor(3) as pool:
+            concurrent.futures.ThreadPoolExecutor(4) as pool:
         ck, rec = str(pathlib.Path(d) / "ck"), str(pathlib.Path(d) /
                                                     "stream.npz")
         size = ["--ticks", str(live_ticks), "--tick", str(live_tick), *where]
@@ -2399,16 +2496,23 @@ def launchers(dev, drills="straggler,live,ingest,serving,crash",
         drill_f = pool.submit(run_launcher, "elastic_drill",
                               ["--drills", drills, *where], 600)
         live_f = pool.submit(live_pair)
+        # the default general tick inside the persistent driver: 4 ticks
+        # a call, one graph a call shape
+        super_f = pool.submit(run_launcher, "live",
+                              ["--ticks", "8", "--tick", "32",
+                               "--super-batch", "4", "--oracle", *where],
+                              600)
         # the same live run on this host's CPU: the general tick on the
         # card against its plain path (a host's numpy draws the stream)
         cpu_f = pool.submit(run_launcher, "live",
                             ["--ticks", str(live_ticks), "--tick",
                              str(live_tick), "--oracle", "--device", "cpu"],
                             600)
-        runs = [drill_f.result(), *live_f.result()]
+        runs = [drill_f.result(), *live_f.result(), super_f.result()]
         cpu_run = cpu_f.result()
     text = "\n".join(ln for r in runs for ln in r["summary"])
     for want in ("[1] straggler drain: outputs identical=True",
+                 "parity=True", "torn save was invisible",
                  "outputs match static oracle=True",
                  "outputs == single-gate oracle: True",
                  "[3] crash drill: latest complete step = 10",
@@ -2419,6 +2523,7 @@ def launchers(dev, drills="straggler,live,ingest,serving,crash",
     assert restored and int(restored.group(1)) > 0, text
     count = re.compile(r"static oracle = True \((\d+) output tuples")
     card_n = count.search("\n".join(runs[1]["summary"])).group(1)
+    assert count.search("\n".join(runs[3]["summary"])), runs[3]["summary"]
     cpu_n = count.search("\n".join(cpu_run["summary"])).group(1)
     assert card_n == cpu_n, ("live: card and CPU outputs differ", card_n,
                              cpu_n)
@@ -2428,9 +2533,7 @@ def launchers(dev, drills="straggler,live,ingest,serving,crash",
     if dev.type == "cuda":
         assert runs[0]["launches"]["flash_attention"] > 0, runs[0]["launches"]
     return dict(phase="launchers", drills=drills.split(","),
-                cut=dict(drills=["recovery", "recovery-kill"],
-                         live=dict(ticks=live_ticks, tick=live_tick,
-                                   reference=dict(ticks=24, tick=256))),
+                cut=None, live=dict(ticks=live_ticks, tick=live_tick),
                 checkpoint_every=every, runs=runs, live_outputs=int(card_n),
                 live_outputs_equal_to_cpu=True,
                 cpu_live_seconds=cpu_run["seconds"], launches=launches)
@@ -2440,9 +2543,11 @@ def launchers(dev, drills="straggler,live,ingest,serving,crash",
 # phases 10-11: the elastic serving tier at full width (qwen3-14b, rwkv6-7b)
 # ---------------------------------------------------------------------------
 
-SERVE_KERNEL = {"dense": "flash_attention", "rwkv": "linear_scan"}
+SERVE_KERNEL = {"dense": "flash_attention", "moe": "flash_attention",
+                "rwkv": "linear_scan"}
 # a substring of the CUDA kernels' symbols, for the profile
-SERVE_KERNEL_SYMBOL = {"dense": "flash_", "rwkv": "linear_scan_"}
+SERVE_KERNEL_SYMBOL = {"dense": "flash_", "moe": "flash_",
+                       "rwkv": "linear_scan_"}
 
 
 def _engine_tokens(eng, prompts, max_new, at=None, mode="vsn",
@@ -2541,6 +2646,10 @@ def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
         _obs.set_current(prev_obs)
     launches = {k: v.launches for k, v in dispatch.registered().items()}
     prefills, rounds = eng.prefills, eng.decode_rounds
+    main_dropped = int(eng.dropped)
+    main_dropped_decode = int(eng.dropped_decode)
+    # capacity a lane: a decode lane's one token fits every expert it picks
+    assert main_dropped_decode == 0, main_dropped_decode
     forwards = prefills + rounds
     assert len(pipe.finished) == source.total_requests > 0, \
         (len(pipe.finished), source.total_requests)
@@ -2615,6 +2724,15 @@ def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
         manual_reconfig=dict(vsn_bytes=vsn_moved, sn_bytes=sn_moved,
                              tokens_unchanged=True),
         profile=profile, peak_gb=peak_gb, launches=launches)
+    if mcfg.kind == "moe":
+        # (token, expert) pairs past an expert's capacity over every
+        # forward the engine ran (the runtime's and the checks'), and the
+        # main path's share: with capacity a lane, decode drops none
+        out["moe"] = dict(dispatch=mcfg.moe.dispatch,
+                          experts=mcfg.moe.n_experts, top_k=mcfg.moe.top_k,
+                          dropped_tokens=int(eng.dropped),
+                          dropped_main_path=main_dropped,
+                          dropped_main_path_decode=main_dropped_decode)
     del rt, pipe, eng
     if cuda:
         torch.cuda.empty_cache()
@@ -2691,7 +2809,8 @@ def main(argv) -> int:
     for run in (q1_wordcount, q3_scalejoin, q1_persistent, q3_persistent,
                 q1_ingest_tier, q1_recovery, launchers,
                 functools.partial(serve_full_width, arch="qwen3-14b"),
-                functools.partial(serve_full_width, arch="rwkv6-7b")):
+                functools.partial(serve_full_width, arch="rwkv6-7b"),
+                functools.partial(serve_full_width, arch="deepseek-moe-16b")):
         t0 = time.perf_counter()
         phases.append(run(dev))
         phases[-1]["seconds"] = time.perf_counter() - t0
@@ -2713,7 +2832,7 @@ def main(argv) -> int:
                              "multi_tile", "tier_valid", "cluster_sweep_ms",
                              "max_active_clusters", "prefill",
                              "prefill_t1024", "chunk_sweep_ms",
-                             "decode_split_ms", "push_cases",
+                             "decode_split_ms", "deepseek", "push_cases",
                              "max_abs_err_bf16", "kernels_per_call",
                              "hot_cell_hits", "even", "q3",
                              "no_hits_device_ms") if k in r})

@@ -52,6 +52,7 @@ import torch
 from repro_torch import obs as _obs
 from repro_torch.core import tuples as T
 from repro_torch.core.controller import Reconfiguration
+from repro_torch.core.operator import raise_on_fault
 from repro_torch.core.runtime import fold_frontier
 from repro_torch.io.metrics import MetricsBus
 from repro_torch.io.queues import BoundedQueue, QueueClosed
@@ -328,9 +329,10 @@ class AsyncStreamRuntime:
         ``switched`` flag and the per-instance load vector).  ``idle_s``,
         the time the loop waited on the source for the NEXT tick, is
         subtracted so a starved source does not inflate tick latency."""
-        tick_id, switched, inst_load, meta, t_dispatch = pending
+        tick_id, switched, inst_load, meta, t_dispatch, fault = pending
         with _obs.span("runtime.drain"):
             sw = bool(switched)
+            raise_on_fault(fault)
             load = (_np(inst_load) if inst_load is not None
                     else self._host_inst_load(meta.key_hist))
         latency = max(time.perf_counter() - t_dispatch - idle_s, 0.0)
@@ -437,7 +439,8 @@ class AsyncStreamRuntime:
                     # tick T-1 is read while T computes; the wait for T's
                     # arrival was source idle time, not T-1's latency
                     self._drain(pending, idle_s=idle_s)
-                pending = (meta.tick_id, switched, inst_load, meta, t0)
+                pending = (meta.tick_id, switched, inst_load, meta, t0,
+                           getattr(self.pipeline, "fault", None))
             if pending is not None:
                 self._drain(pending)
         except BaseException as e:
@@ -512,6 +515,7 @@ def run_sync(pipeline, source, sink=None, controller=None,
             metrics.record_detection(rc.epoch, tick_id, rc)
         _wait(pipeline)                        # the synchronous host loop
         sw = bool(switched)
+        raise_on_fault(getattr(pipeline, "fault", None))
         load = None if inst_load is None else _np(inst_load)
         metrics.record_tick(tick_id, meta.n_tuples,
                             time.perf_counter() - t0, load, 0,

@@ -12,17 +12,23 @@ and one scalar ``next_l``, the earliest non-expired window index.
 ``zeta`` is a dict of tensors with leading dims ``[K, slots]``.
 ``init_zeta(device)`` builds it on a device.
 
-``tick`` processes a ready batch one tuple at a time, in a Python loop over
-the lanes (the reference's ``lax.scan``): it is the semantic oracle, run in
-the CPU tests at small sizes and by ``SNPipeline``'s default tick.  Its
-expiry loop (``_expire_all``) is a Python ``while`` that reads ``next_l``
-back to the host once per round.  ``expire_closed`` is the same expiry
-with no host read, for the whole-tick fast paths: every closed generation
-is expired in one vectorised pass over the slot ring, and ``compact``
-writes the emitted rows into a fixed-size output buffer.
+``tick_instances`` is the general tick: Alg. 2 one ready tuple at a
+time, for every VSN or SN instance in one pass (a leading ``[n]`` axis on
+``resp``, the state and the outputs, the reference's ``vmap`` of its
+``lax.scan``).  It reads nothing back to the host: each lane is a fixed
+set of tensor operations, the lanes' watermarks and window frontiers are
+prefix maxima over the sorted batch, and the expiry's ``while`` is
+bounded (``_plan``: one masked round a slot, and under WT=single a second
+pass for each slot's last due round; where that bound cannot be shown
+exact a device flag makes the caller raise ``ExpiryBoundError``).  User
+functions marked ``rowwise`` run once on all rows; others run under
+``torch.func.vmap`` on one slot, as the reference calls them.  ``tick``
+is its one-instance form.  ``expire_closed`` is the whole-tick fast
+paths' expiry (one vectorised pass over the slot ring), and ``compact``
+writes their emitted rows into a fixed-size output buffer.
 
-State updates are out of place: one state is the input of every VSN
-instance of a tick, so no instance may write into it.
+The shared input state is never written: one state is the input of
+every VSN instance of a tick.  A tick's own buffers are written in place.
 """
 
 from __future__ import annotations
@@ -117,27 +123,6 @@ def _put(buf: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
     return ext.index_put((idx,), vals)[:-1]
 
 
-def _emit(outs: Outputs, tau, payload: torch.Tensor,
-          valid: torch.Tensor) -> Outputs:
-    """Append the valid rows, in row order, into the output buffer; rows
-    past its capacity are dropped and counted."""
-    cap = outs.tau.shape[0]
-    vi = valid.to(torch.int32)
-    pos = outs.count + torch.cumsum(vi, 0, dtype=torch.int32) - vi
-    idx = torch.where(valid & (pos < cap), pos, cap).long()
-    n = vi.sum(dtype=torch.int32)
-    tau_b = torch.as_tensor(tau, dtype=torch.int32,
-                            device=valid.device).expand(valid.shape)
-    return Outputs(
-        tau=_put(outs.tau, idx, tau_b),
-        payload=_put(outs.payload, idx, payload.to(torch.float32)),
-        valid=_put(outs.valid, idx, valid),
-        count=(outs.count + n).clamp(max=cap),
-        overflow=outs.overflow + (outs.count + n - cap).clamp(min=0)
-        - (outs.count - cap).clamp(min=0),
-    )
-
-
 # ---------------------------------------------------------------------------
 # Table-1 default behaviours
 # ---------------------------------------------------------------------------
@@ -164,6 +149,9 @@ def default_f_u(zeta_s, tup: Tup, win_l, mask):
             torch.zeros((k,), dtype=torch.bool, device=slot.device))
 
 
+default_f_u.rowwise = True
+
+
 def default_f_o(zeta_s, win_l, key_ids):
     """Return no phi (Table 1)."""
     k = key_ids.shape[0]
@@ -173,6 +161,9 @@ def default_f_o(zeta_s, win_l, key_ids):
             torch.zeros((k,), dtype=torch.bool, device=key_ids.device))
 
 
+default_f_o.rowwise = default_f_o.silent = True
+
+
 def default_f_s(ws: int):
     """Purge stale tuples (Table 1): drop entries with tau < new left bound."""
     def f_s(zeta_s, new_left):
@@ -180,6 +171,7 @@ def default_f_s(ws: int):
         zeta["tau"] = torch.where(zeta_s["tau"] < new_left, -1, zeta_s["tau"])
         live = (zeta["tau"] >= 0).sum(dim=-1)
         return zeta, live > 0
+    f_s.rowwise = f_s.purge = True
     return f_s
 
 
@@ -234,47 +226,6 @@ class OperatorDef:
             watermark=torch.zeros((), dtype=torch.int32, device=dev))
 
 
-def _slot_index(s):
-    return s.long() if isinstance(s, torch.Tensor) else s
-
-
-def _slice_slot(zeta, s):
-    s = _slot_index(s)
-    return {name: a[:, s] for name, a in zeta.items()}
-
-
-def _set_col(a: torch.Tensor, s, v) -> torch.Tensor:
-    new = a.clone()
-    new[:, _slot_index(s)] = v
-    return new
-
-
-def _set_slot(zeta, s, zeta_s):
-    return {name: _set_col(a, s, zeta_s[name]) for name, a in zeta.items()}
-
-
-def _expire_round(op: OperatorDef, st: OpState, outs: Outputs,
-                  resp: torch.Tensor, key_ids: torch.Tensor):
-    """forwardAndShift for the earliest live window generation (Alg. 2 L12-18)."""
-    ws = op.window
-    s = op.slot_of(st.next_l)
-    zeta_s = _slice_slot(st.zeta, s)
-    payload, f_valid = op.f_o(zeta_s, st.next_l, key_ids)
-    occ = st.occupied[:, _slot_index(s)]
-    outs = _emit(outs, ws.right_of(st.next_l), payload, f_valid & occ & resp)
-
-    if ws.wt == SINGLE:
-        zeta_new, still_occ = op.f_s(zeta_s, ws.left_of(st.next_l + 1))
-        zeta = _set_slot(st.zeta, s, zeta_new)
-        occupied = _set_col(st.occupied, s, still_occ & occ)
-    else:
-        fresh = _slice_slot(op.init_zeta(st.occupied.device), s)
-        zeta = _set_slot(st.zeta, s, fresh)
-        occupied = _set_col(st.occupied, s, False)
-    return dataclasses.replace(st, zeta=zeta, occupied=occupied,
-                               next_l=st.next_l + 1), outs
-
-
 def compact(valid: torch.Tensor, cap: int):
     """The first ``cap`` rows of ``valid`` that are set, in row order, with
     no host read: ``(rows, ok, n)``, where ``rows`` (int64[cap]) is each
@@ -318,7 +269,8 @@ def expiry_plan(op: OperatorDef, n0, w, key_ids: torch.Tensor) -> dict:
 def expire_closed(op: OperatorDef, st: OpState, w, resp: torch.Tensor,
                   key_ids: torch.Tensor, plan: dict = None
                   ) -> Tuple[OpState, Outputs]:
-    """``_expire_all`` into an empty buffer, with no host read.
+    """The round-by-round expiry (Alg. 2 L33-35) into an empty buffer,
+    with no host read.
 
     The generations ``next_l .. e - 1`` close, where ``e =
     earliest_win_l(w)``.  The ring holds ``op.slots`` consecutive
@@ -364,107 +316,441 @@ def expire_closed(op: OperatorDef, st: OpState, w, resp: torch.Tensor,
                                next_l=plan["next_l"]), outs
 
 
-def _expire_all(op: OperatorDef, st: OpState, outs: Outputs, w,
-                resp: torch.Tensor, key_ids: torch.Tensor):
-    """while rho + WS <= W: forwardAndShift (Alg. 2 L33-35).
-
-    A window ``[l*WA, l*WA+WS)`` closes once ``W >= l*WA + WS``.  The loop
-    condition is read back to the host each round.
-    """
-    while bool((st.next_l != UNSET_L) & (op.window.right_of(st.next_l) <= w)):
-        st, outs = _expire_round(op, st, outs, resp, key_ids)
-    return st, outs
 
 
-def process_tuple(op: OperatorDef, st: OpState, outs: Outputs, tup: Tup,
-                  resp: torch.Tensor, valid) -> Tuple[OpState, Outputs]:
-    """processSN/processVSN body for one ready tuple (Alg. 2 L31-36).
+# ---------------------------------------------------------------------------
+# The general tick: every instance in one pass, no host read
+# ---------------------------------------------------------------------------
 
-    ``resp`` is the responsibility mask over virtual keys for this
-    instance under the current epoch's f_mu (Alg. 2 L26 / Alg. 4 L23).
-    """
-    ws = op.window
-    dev = resp.device
-    key_ids = torch.arange(op.k_virt, dtype=torch.int32, device=dev)
+class ExpiryBoundError(RuntimeError):
+    """A bounded expiry could not be shown to equal the round-by-round
+    loop: under WT=single a slot stayed occupied after its first closing
+    round while more than two rounds were due on it, and the operator's
+    functions do not say that the rounds between may be skipped."""
 
-    w = torch.where(valid, torch.maximum(st.watermark, tup.tau), st.watermark)
-    next_l = torch.where((st.next_l == UNSET_L) & valid,
-                         ws.earliest_win_l(tup.tau), st.next_l)
-    st = dataclasses.replace(st, watermark=w, next_l=next_l)
 
-    if op.lazy_expiry:
-        e = ws.earliest_win_l(w)
-        next_l = torch.where(st.next_l == UNSET_L, e,
-                             torch.maximum(st.next_l, e))
-        st = dataclasses.replace(st, next_l=next_l)
+_FAULTS = threading.local()
+
+
+@contextlib.contextmanager
+def expiry_faults():
+    """Collect, instead of raising, the general ticks' expiry flags (device
+    bool scalars) of the calls inside this block: the caller reads them at
+    a sync it already has (``raise_on_fault``)."""
+    prev = getattr(_FAULTS, "flags", None)
+    _FAULTS.flags = []
+    try:
+        yield _FAULTS.flags
+    finally:
+        _FAULTS.flags = prev
+
+
+def any_fault(flags):
+    """The collected flags as one device bool, or None when no tick could
+    raise one."""
+    return torch.stack(flags).any() if flags else None
+
+
+def raise_on_fault(fault) -> None:
+    """Host read of a collected flag; raises ``ExpiryBoundError``."""
+    if fault is not None and bool(fault):
+        raise ExpiryBoundError(
+            "the general tick's expiry closed more than two window "
+            "generations on a slot that f_S kept occupied; its bounded form "
+            "cannot show the rounds between to be empty (mark f_S "
+            "'clears_slot', or 'purge' with a 'silent' f_O, where they are)")
+
+
+def _report(fault) -> None:
+    flags = getattr(_FAULTS, "flags", None)
+    if flags is None:
+        raise_on_fault(fault)           # a standalone call: its end
     else:
-        st, outs = _expire_all(op, st, outs, w, resp, key_ids)
+        flags.append(fault)
 
-    # handleInputTuple (Alg. 2 L19-30): union of the key set's one-hots.
-    khit = torch.zeros((op.k_virt,), dtype=torch.bool, device=dev)
-    for kk in range(tup.keys.shape[0]):
-        key = tup.keys[kk]
-        khit = khit | ((key_ids == key) & (key >= 0))
-    khit = khit & resp & valid
 
-    l_min_raw, l_max = ws.window_indices(tup.tau)
-    l_min = torch.maximum(l_min_raw, st.next_l)  # expired generations excluded
+def _take(a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """``a[i, s[i, d]]``: a slot-major ``[n, S, ...]`` leaf at the slots
+    ``s`` (int64 ``[n, D]``) -> ``[n, D, ...]``."""
+    ix = s.reshape(s.shape + (1,) * (a.ndim - 2)).expand(
+        s.shape + a.shape[2:])
+    return torch.gather(a, 1, ix)
+
+
+def _give(a: torch.Tensor, s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``_take``'s inverse, in place on the tick's private ``a``:
+    ``a[i, s[i, d]] = v[i, d]`` (the slots of a row are distinct)."""
+    ix = s.reshape(s.shape + (1,) * (a.ndim - 2)).expand(v.shape)
+    return a.scatter_(1, ix, v.to(a.dtype))
+
+
+def _bcast(m: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    return m.reshape(m.shape + (1,) * (a.ndim - m.ndim))
+
+
+def _call(fn, k: int, zeta: dict, *args):
+    """A user function on ``m`` slot views ``zeta`` (leaves ``[m, K,
+    ...]``).  Each argument is ``(kind, value)``: ``"scalar"`` one value a
+    view (``[m]``), ``"keys"`` one a view and key (``[m, K]``), ``"ids"``
+    the key ids (``[K]``, the same for every view), ``"const"`` passed as
+    is.  A function marked ``rowwise`` runs once on the ``[m * K, ...]``
+    rows, with its scalars as a ``[m * K, 1]`` column; any other runs
+    under ``torch.func.vmap``, seeing one slot as the reference calls
+    it.  Results come back ``[m, K, ...]``."""
+    m = next(iter(zeta.values())).shape[0]
+    if getattr(fn, "rowwise", False):
+        flat = {n: a.reshape((m * k,) + a.shape[2:]) for n, a in zeta.items()}
+        conv = {"scalar": lambda v: v.repeat_interleave(k)[:, None],
+                "keys": lambda v: v.reshape(-1),
+                "ids": lambda v: v.repeat(m), "const": lambda v: v}
+        out = fn(flat, *(conv[kind](v) for kind, v in args))
+        return tuple(
+            {n: a.reshape((m, k) + a.shape[1:]) for n, a in o.items()}
+            if isinstance(o, dict) else o.reshape((m, k) + o.shape[1:])
+            for o in out)
+    batched = [v for kind, v in args if kind in ("scalar", "keys")]
+
+    def one(z, *vals):
+        it = iter(vals)
+        return fn(z, *(next(it) if kind in ("scalar", "keys") else v
+                       for kind, v in args))
+    return torch.func.vmap(one)(zeta, *batched)
+
+
+def _flat2(zeta: dict) -> dict:
+    """``[n, D, K, ...]`` views as ``[n * D, K, ...]``."""
+    return {nm: a.reshape((-1,) + a.shape[2:]) for nm, a in zeta.items()}
+
+
+def _rounds(op: OperatorDef, z, occ, gen, act, resp, key_ids, fresh):
+    """Closing rounds (forwardAndShift, Alg. 2 L12-18) of the generations
+    ``gen`` (i32 ``[n, D]``, distinct slots in a row) where ``act``; ``z``,
+    ``occ`` and ``fresh`` are slot-major.  Returns the new ``z``, ``occ``
+    and the rows emitted, round by round: ``payload [n, D * K, P]`` and
+    ``valid [n, D * K]`` (their taus are ``right_of(gen)``)."""
+    ws = op.window
+    n, d = gen.shape
+    k = key_ids.shape[0]
+    s = (gen % op.slots).long()
+    zd = {name: _take(a, s) for name, a in z.items()}
+    occ_d = _take(occ, s)
+    payload, f_valid = _call(op.f_o, k, _flat2(zd),
+                             ("scalar", gen.reshape(-1)), ("ids", key_ids))
+    valid = (f_valid.reshape(n, d, k) & occ_d & resp[:, None, :]
+             & act[..., None])
     if ws.wt == SINGLE:
-        l_max = l_min
+        new, still = _call(op.f_s, k, _flat2(zd),
+                           ("scalar", ws.left_of(gen + 1).reshape(-1)))
+        z = {nm: _give(a, s, torch.where(
+            _bcast(act, zd[nm]), new[nm].reshape(zd[nm].shape), zd[nm]))
+            for nm, a in z.items()}
+        occ = _give(occ, s, torch.where(
+            act[..., None], still.reshape(n, d, k) & occ_d, occ_d))
+    else:
+        z = {nm: _give(a, s, torch.where(_bcast(act, zd[nm]), fresh[nm][s],
+                                         zd[nm]))
+             for nm, a in z.items()}
+        occ = _give(occ, s, occ_d & ~act[..., None])
+    return z, occ, payload.reshape(n, d * k, -1), valid.reshape(n, d * k)
 
-    for off in range(ws.n_slots if ws.wt == MULTI else 1):
-        l = l_min + off
-        s = op.slot_of(l)
-        zeta_s = _slice_slot(st.zeta, s)
-        mask = khit & (l <= l_max)
-        zeta_new, payload, f_valid = op.f_u(zeta_s, tup, l, mask)
-        zeta_sel = {
-            name: torch.where(mask.reshape(mask.shape + (1,) * (new.ndim - 1)),
-                              new, zeta_s[name])
-            for name, new in zeta_new.items()}
-        occ = st.occupied[:, _slot_index(s)]
-        st = dataclasses.replace(st, zeta=_set_slot(st.zeta, s, zeta_sel),
-                                 occupied=_set_col(st.occupied, s, occ | mask))
-        # f_U may emit multiple outputs per key: payload [K,P] or [K,E,P].
-        if payload.ndim == 3:
-            emit_valid = (f_valid & mask[:, None]).reshape(-1)
-            payload = payload.reshape(-1, payload.shape[-1])
+
+def _skippable(op: OperatorDef) -> bool:
+    """The rounds between a slot's first and last closing round change
+    nothing the last one does not: f_S empties the slot, or purges by its
+    left bound (purges compose to the last) while f_O emits nothing."""
+    return (op.window.wt == MULTI
+            or getattr(op.f_s, "clears_slot", False)
+            or (getattr(op.f_s, "purge", False)
+                and getattr(op.f_o, "silent", False)))
+
+
+def _plan(op: OperatorDef, m, c):
+    """The expiry loop (Alg. 2 L33-35) with a bound, for the ``c``
+    generations that close from ``m`` (i32, any leading shape ``[...]``):
+    ``op.slots`` masked rounds, the first round of each slot.  A later
+    round on a slot finds it emptied under WT=multi.  Under WT=single
+    ``f_S`` may keep it occupied, so a second pass runs each slot's last
+    due round; the rounds between are skipped, which is exact where
+    ``_skippable`` says so and is otherwise flagged where the slot stayed
+    occupied.  Returns
+    the passes ``[(gen, act)]`` (``[..., slots]`` each, rounds in order)
+    and ``skips`` (``[..., slots]``: the second pass's slots whose rounds
+    between it and the first may hold something, or None)."""
+    n_s = op.slots
+    d = torch.arange(n_s, dtype=torch.int32, device=m.device)
+    passes = [(m[..., None] + d, d < c[..., None])]
+    skips = None
+    if op.window.wt == SINGLE:
+        d2 = c[..., None] - n_s + d
+        passes.append((m[..., None] + d2, d2 >= n_s))
+        if not _skippable(op):
+            skips = d2 >= 2 * n_s
+    return passes, skips
+
+
+def _expire(op: OperatorDef, z, occ, passes, skips, resp, key_ids, fresh):
+    """Run ``_plan``'s passes (``[n, slots]`` each) on slot-major state.
+    Returns ``(z, occ, rows, fault)``: ``rows`` a ``(payload, valid)`` a
+    pass, ``fault`` a device bool (or None) that a skipped round may have
+    mattered."""
+    rows, fault = [], None
+    for i, (gen, act) in enumerate(passes):
+        if i and skips is not None:
+            kept = _take(occ.any(dim=-1), (gen % op.slots).long())
+            fault = (skips & kept).any()
+        z, occ, payload, valid = _rounds(op, z, occ, gen, act, resp, key_ids,
+                                         fresh)
+        rows.append((payload, valid))
+    return z, occ, rows, fault
+
+
+@dataclasses.dataclass
+class _Buf:
+    """Stacked output buffers with a drop lane at ``cap`` and the
+    unclamped count of rows offered, written in place (private to one
+    tick)."""
+    tau: torch.Tensor       # i32[n, cap + 1]
+    payload: torch.Tensor   # f32[n, cap + 1, P]
+    valid: torch.Tensor     # bool[n, cap + 1]
+    total: torch.Tensor     # i32[n]
+
+    @classmethod
+    def empty(cls, n: int, cap: int, p: int, device) -> "_Buf":
+        z = lambda *sh, dt=torch.int32: torch.zeros(sh, dtype=dt,
+                                                    device=device)
+        return cls(z(n, cap + 1), z(n, cap + 1, p, dt=torch.float32),
+                   z(n, cap + 1, dt=torch.bool), z(n))
+
+    @classmethod
+    def of(cls, outs: Outputs) -> "_Buf":
+        """An ``Outputs`` (unstacked) as a one-row buffer."""
+        pad = lambda a: torch.cat([a, a.new_zeros((1,) + a.shape[1:])])[None]
+        return cls(pad(outs.tau), pad(outs.payload), pad(outs.valid),
+                   (outs.count + outs.overflow)[None])
+
+    def emit(self, tau, payload, valid) -> None:
+        """Append the valid rows in row order: ``tau [n, M]``, ``payload
+        [n, M, P]``, ``valid [n, M]``."""
+        cap = self.tau.shape[1] - 1
+        vi = valid.to(torch.int32)
+        pos = self.total[:, None] + torch.cumsum(vi, 1, dtype=torch.int32) - vi
+        idx = torch.where(valid & (pos < cap), pos, cap).long()
+        self.tau.scatter_(1, idx, tau)
+        self.payload.scatter_(1, idx[..., None].expand(payload.shape),
+                              payload.to(torch.float32))
+        self.valid.scatter_(1, idx, valid)
+        self.total += vi.sum(dim=1, dtype=torch.int32)
+
+    def outputs(self) -> Outputs:
+        cap = self.tau.shape[1] - 1
+        return Outputs(tau=self.tau[:, :cap], payload=self.payload[:, :cap],
+                       valid=self.valid[:, :cap],
+                       count=self.total.clamp(max=cap),
+                       overflow=(self.total - cap).clamp(min=0))
+
+
+def _row_taus(taus, k: int, per: list):
+    """Each lane's row taus, lane-major: ``taus`` a ``[n, C, D_i]`` tensor
+    a part, each entry repeated ``per[i]`` times."""
+    n, c = taus[0].shape[:2]
+    return torch.cat([t[..., None].expand(n, c, t.shape[2], r).reshape(
+        n, c, -1) for t, r in zip(taus, per)], dim=2).reshape(n, -1)
+
+
+def _slot_major(zeta, n: int, stacked: bool):
+    """State leaves ``[K, S, ...]`` (shared) or ``[n, K, S, ...]``
+    (stacked) as the tick's private slot-major ``[n, S, K, ...]`` copy,
+    which it then writes in place (the input is only read)."""
+    copy = lambda a: a.clone(memory_format=torch.contiguous_format)
+    if stacked:
+        return {name: copy(a.transpose(1, 2)) for name, a in zeta.items()}
+    return {name: copy(a.transpose(0, 1)[None].expand(
+        (n,) + a.transpose(0, 1).shape)) for name, a in zeta.items()}
+
+
+# lanes whose output rows are appended to the buffer together
+EMIT_CHUNK = 32
+
+
+def tick_instances(op: OperatorDef, st: OpState, ready: T.TupleBatch,
+                   resp: torch.Tensor, *, live: torch.Tensor = None,
+                   explicit_w=None, stacked: bool = False):
+    """The general tick (Alg. 2, one ready tuple at a time) for ``n``
+    instances in one pass: the reference's ``vmap`` of its ``lax.scan``.
+
+    ``resp`` is bool ``[n, K]``.  ``st`` is one state every instance starts
+    from (VSN: it is only read) or, ``stacked``, one a row (SN).  ``live``
+    (bool ``[n, B]``) is each instance's queue, default ``ready.valid &
+    ~ready.is_control`` for all.  Returns ``(state [n, ...], outputs [n,
+    ...])``.  The watermark and window frontier of every lane come from
+    prefix maxima over the sorted batch, and with them every lane's
+    expiry plan and window range; the lanes then run in order, each a
+    fixed set of tensor operations, and their output rows are appended
+    ``EMIT_CHUNK`` lanes at a time.  Nothing is read back to the host, so
+    the tick can be captured in a CUDA graph.
+    """
+    op = op.resolved()
+    ws = op.window
+    n, k = resp.shape
+    dev = resp.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    if live is None:
+        live = (ready.valid & ~ready.is_control)[None].expand(n, ready.batch)
+    w0 = st.watermark if stacked else st.watermark.expand(n)
+    n0 = st.next_l if stacked else st.next_l.expand(n)
+    z = _slot_major(st.zeta, n, stacked)
+    occ = _slot_major({"o": st.occupied}, n, stacked)["o"]
+    fresh = {name: a.transpose(0, 1) for name, a in op.init_zeta(dev).items()}
+    key_ids = torch.arange(k, **i32)
+    buf = _Buf.empty(n, op.out_cap, op.payload_out, dev)
+    faults = []
+
+    b = ready.batch
+    w_end, n_end = w0, n0
+    if b:
+        tau = ready.tau
+        w = torch.maximum(w0[:, None], torch.cummax(
+            torch.where(live, tau, torch.iinfo(torch.int32).min), 1).values)
+        e = ws.earliest_win_l(w)
+        set0 = (n0 != UNSET_L)[:, None]
+        if op.lazy_expiry:
+            nb = torch.where(set0, torch.maximum(n0[:, None], e), e)
+            passes, skips = [], None
         else:
-            emit_valid = f_valid & mask
-        outs = _emit(outs, ws.right_of(l), payload, emit_valid)
-    return st, outs
+            first = ws.earliest_win_l(tau[live.to(torch.int32).argmax(1)])
+            on = set0 | (torch.cumsum(live.to(torch.int32), 1) > 0)
+            nb = torch.where(on, torch.maximum(
+                torch.where(set0, n0[:, None], first[:, None]), e), UNSET_L)
+            prev = torch.cat([n0[:, None], nb[:, :-1]], 1)
+            m = torch.where(on & (prev == UNSET_L), first[:, None], prev)
+            passes, skips = _plan(op, m, nb - torch.where(on, m, nb))
+        n_upd = ws.n_slots if ws.wt == MULTI else 1
+        l_min = torch.maximum(ws.earliest_win_l(tau)[None], nb)
+        l_max = l_min if ws.wt == SINGLE else ws.latest_win_l(tau)[None]
+        l_u = l_min[..., None] + torch.arange(n_upd, **i32)     # [n, B, U]
+        s_u = (l_u % op.slots).long()
+        act_u = l_u <= l_max[..., None]
+        taus = [ws.right_of(g) for g, _ in passes] + [ws.right_of(l_u)]
+        kidx = torch.where((ready.keys >= 0) & (ready.keys < k), ready.keys,
+                           k).long()
+        hit = torch.zeros((b, k + 1), dtype=torch.bool, device=dev).scatter_(
+            1, kidx, True)[:, :k]
+        pend = []
+        for lane in range(b):
+            if passes:
+                z, occ, rows, fault = _expire(
+                    op, z, occ, [(g[:, lane], a[:, lane]) for g, a in passes],
+                    None if skips is None else skips[:, lane], resp, key_ids,
+                    fresh)
+                if fault is not None:
+                    faults.append(fault)
+            else:
+                rows = []
+            s = s_u[:, lane]
+            mask = ((hit[lane] & resp & live[:, lane, None])[:, None, :]
+                    & act_u[:, lane, :, None])
+            zu = {name: _take(a, s) for name, a in z.items()}
+            occ_u = _take(occ, s)
+            tup = Tup(tau=tau[lane], payload=ready.payload[lane],
+                      source=ready.source[lane], keys=ready.keys[lane])
+            new, payload, f_valid = _call(
+                op.f_u, k, _flat2(zu), ("const", tup),
+                ("scalar", l_u[:, lane].reshape(-1)),
+                ("keys", mask.reshape(n * n_upd, k)))
+            z = {nm: _give(a, s, torch.where(
+                _bcast(mask, zu[nm]), new[nm].reshape(zu[nm].shape), zu[nm]))
+                for nm, a in z.items()}
+            occ = _give(occ, s, occ_u | mask)
+            f_valid = f_valid.reshape((n, n_upd, k) + f_valid.shape[2:])
+            rows.append((payload.reshape(n, -1, payload.shape[-1]),
+                         (f_valid & _bcast(mask, f_valid)).reshape(n, -1)))
+            pend.append(rows)
+            if len(pend) == EMIT_CHUNK or lane == b - 1:
+                j0 = lane + 1 - len(pend)
+                buf.emit(_row_taus([t[:, j0:lane + 1] for t in taus], k,
+                                   [k] * len(passes) +
+                                   [rows[-1][1].shape[1] // n_upd]),
+                         torch.cat([p for r in pend for p, _ in r], dim=1),
+                         torch.cat([v for r in pend for _, v in r], dim=1))
+                pend = []
+        w_end, n_end = w[:, -1], nb[:, -1]
+
+    if explicit_w is not None:
+        w_end = torch.maximum(w_end, torch.as_tensor(explicit_w, **i32))
+        e = ws.earliest_win_l(w_end)
+        start = torch.where(n_end == UNSET_L, e, n_end)
+        n_end = torch.maximum(start, e)
+        if not op.lazy_expiry:
+            z, occ, fault = _expire_emit(op, z, occ, start, n_end - start,
+                                         resp, key_ids, fresh, buf)
+            if fault is not None:
+                faults.append(fault)
+    if faults:
+        _report(torch.stack(faults).any())
+    state = OpState(zeta={name: a.transpose(1, 2) for name, a in z.items()},
+                    occupied=occ.transpose(1, 2), next_l=n_end,
+                    watermark=w_end)
+    return state, buf.outputs()
+
+
+def _expire_emit(op: OperatorDef, z, occ, m, c, resp, key_ids, fresh,
+                 buf: _Buf):
+    """The bounded expiry of ``c`` generations from ``m`` (``[n]``), its
+    rows appended to ``buf``.  Returns ``(z, occ, fault)``."""
+    passes, skips = _plan(op, m, c)
+    z, occ, rows, fault = _expire(op, z, occ, passes, skips, resp, key_ids,
+                                  fresh)
+    k = key_ids.shape[0]
+    buf.emit(_row_taus([op.window.right_of(g)[:, None] for g, _ in passes],
+                       k, [k] * len(passes)),
+             torch.cat([p for p, _ in rows], dim=1),
+             torch.cat([v for _, v in rows], dim=1))
+    return z, occ, fault
+
+
+def tick(op: OperatorDef, st: OpState, ready: T.TupleBatch,
+         resp: torch.Tensor, explicit_w=None) -> Tuple[OpState, Outputs]:
+    """One instance's general tick (``tick_instances`` with one row).
+
+    ``explicit_w`` models explicit watermark propagation (§2.3), which SN
+    needs when an instance's queue runs dry.
+    """
+    state, outs = tick_instances(op, st, ready, resp[None],
+                                 explicit_w=explicit_w)
+    one = lambda a: a[0]
+    return (OpState(zeta={nm: one(a) for nm, a in state.zeta.items()},
+                    occupied=one(state.occupied), next_l=one(state.next_l),
+                    watermark=one(state.watermark)),
+            Outputs(*(one(getattr(outs, f.name))
+                      for f in dataclasses.fields(Outputs))))
 
 
 def advance_explicit(op: OperatorDef, st: OpState, outs: Outputs,
                      explicit_w, resp: torch.Tensor):
     """Explicit watermark at the end of a tick (§2.3): an end-of-tick
     watermark reaches the instance whatever was routed to it, and the
-    windows it closes are expired."""
+    windows it closes are expired (bounded, as the general tick's), their
+    rows appended to ``outs``."""
+    op = op.resolved()
     w = torch.maximum(st.watermark, torch.as_tensor(
         explicit_w, dtype=torch.int32, device=st.watermark.device))
     e = op.window.earliest_win_l(w)
-    next_l = torch.where(st.next_l == UNSET_L, e, st.next_l)
-    st = dataclasses.replace(st, watermark=w, next_l=next_l)
+    start = torch.where(st.next_l == UNSET_L, e, st.next_l)
+    st = dataclasses.replace(st, watermark=w, next_l=torch.maximum(start, e))
     if op.lazy_expiry:
-        return dataclasses.replace(st, next_l=torch.maximum(st.next_l, e)), outs
+        return st, outs
     key_ids = torch.arange(op.k_virt, dtype=torch.int32, device=resp.device)
-    return _expire_all(op, st, outs, w, resp, key_ids)
-
-
-def tick(op: OperatorDef, st: OpState, ready: T.TupleBatch,
-         resp: torch.Tensor, explicit_w=None) -> Tuple[OpState, Outputs]:
-    """Process one ready batch tuple by tuple (general, order-preserving).
-
-    ``explicit_w`` models explicit watermark propagation (§2.3), which SN
-    needs when an instance's queue runs dry.
-    """
-    op = op.resolved()
-    outs = _empty_outputs(op.out_cap, op.payload_out, ready.device)
-    live = ready.valid & ~ready.is_control
-    for lane in range(ready.batch):
-        tup = Tup(tau=ready.tau[lane], payload=ready.payload[lane],
-                  source=ready.source[lane], keys=ready.keys[lane])
-        st, outs = process_tuple(op, st, outs, tup, resp, live[lane])
-    if explicit_w is not None:
-        st, outs = advance_explicit(op, st, outs, explicit_w, resp)
-    return st, outs
+    fresh = {name: a.transpose(0, 1)
+             for name, a in op.init_zeta(resp.device).items()}
+    buf = _Buf.of(outs)
+    z, occ, fault = _expire_emit(
+        op, _slot_major(st.zeta, 1, False),
+        _slot_major({"o": st.occupied}, 1, False)["o"], start[None],
+        (st.next_l - start)[None], resp[None], key_ids, fresh, buf)
+    if fault is not None:
+        _report(fault)
+    got = buf.outputs()
+    return dataclasses.replace(
+        st, zeta={name: a[0].transpose(0, 1) for name, a in z.items()},
+        occupied=occ[0].transpose(0, 1)), Outputs(
+        *(getattr(got, f.name)[0] for f in dataclasses.fields(Outputs)))

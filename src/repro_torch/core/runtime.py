@@ -25,10 +25,14 @@ asks for before a capture) and then captures them; every later call copies
 its operands into the graph's static buffers and replays it.  A
 reconfiguration's control tuples are written into the pad lanes of tick
 ``reconfig_at`` inside the graph, at a tick index held in a device tensor,
-so one graph serves the steady and the reconfiguring call alike.  A tick
-function that cannot be captured (one that reads a value back to the
-host, as the general O+ tick does) makes the call raise.  ``MeshPipeline``
-comes with the mesh slice.
+so one graph serves the steady and the reconfiguring call alike.  Every
+tick function the repo builds is captured, the general O+ tick included
+(it reads nothing back to the host); one that does read the host makes
+the call raise ``GraphCaptureError``.  Where the general tick's bounded
+expiry cannot be shown exact it sets a device flag (``fault``) that the
+pipeline raises on at a read it already makes: the end of ``step`` and
+``run_persistent``, or the async runtime's control-lane read.
+``MeshPipeline`` comes with the mesh slice.
 """
 
 from __future__ import annotations
@@ -46,7 +50,9 @@ from repro_torch import device as _device
 from repro_torch.core import elastic, scalegate, sn, vsn
 from repro_torch.core import tuples as T
 from repro_torch.core.controller import Reconfiguration
-from repro_torch.core.operator import OperatorDef, tick as general_tick
+from repro_torch.core.operator import (OperatorDef, any_fault,
+                                       expiry_faults, raise_on_fault,
+                                       tick as general_tick)
 from repro_torch.kernels import dispatch
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -101,6 +107,7 @@ class PersistentOut:
     switched: torch.Tensor         # bool[K]  epoch switch per tick
     wmark: torch.Tensor            # i32[K]   watermark report per tick
     inst_load: Any = None          # i32[K, n_max]
+    fault: Any = None              # bool[] bounded-expiry flag, or None
 
 
 class GraphCaptureError(RuntimeError):
@@ -291,6 +298,9 @@ class VSNPipeline:
         self.bytes_transferred = 0
         self._graphs: Dict[tuple, _Graph] = {}   # (K, lanes, kmax, p) ->
         self._stage_stream = None
+        # the last call's bounded-expiry flag (device bool), None where its
+        # tick function cannot raise one
+        self.fault = None
 
     def _ensure_gate(self, kmax: int, payload_width: int):
         if self.sg is None:
@@ -361,17 +371,20 @@ class VSNPipeline:
         gate's frontier back from the device."""
         incoming, fmu_new, active_new = _with_ctrl(
             self, self.stage(staged), reconfig, frontier)
-        (self.sg, self.epoch, self.sigma, outs1, outs2, switched, _wmk,
-         inst_load) = vsn.pipeline_tick(self.sg, self.epoch, self.sigma,
-                                        incoming, fmu_new, active_new,
-                                        self._tick_with_epoch,
-                                        self._inst_load)
+        with expiry_faults() as flags:
+            (self.sg, self.epoch, self.sigma, outs1, outs2, switched, _wmk,
+             inst_load) = vsn.pipeline_tick(self.sg, self.epoch, self.sigma,
+                                            incoming, fmu_new, active_new,
+                                            self._tick_with_epoch,
+                                            self._inst_load)
+        self.fault = any_fault(flags)
         return outs1, outs2, switched, inst_load
 
     def step(self, incoming: T.TupleBatch,
              reconfig: Optional[Reconfiguration] = None):
         """Push one tick; returns (outputs_pre, outputs_post, switched)."""
         outs1, outs2, switched, _ = self.step_staged(incoming, reconfig)
+        raise_on_fault(self.fault)
         return outs1, outs2, switched
 
     def switch_bytes(self) -> int:
@@ -465,9 +478,10 @@ class VSNPipeline:
             res = self._persistent_ticks(
                 self.sg, self.epoch, self.sigma,
                 *(tree_map(lambda a: a.to(self.device), x) for x in operands))
-        (self.sg, self.epoch, self.sigma, o1, o2, sw, wmk, il) = res
+        (self.sg, self.epoch, self.sigma, o1, o2, sw, wmk, il,
+         self.fault) = res
         return PersistentOut(outs_pre=o1, outs_post=o2, switched=sw,
-                             wmark=wmk, inst_load=il)
+                             wmark=wmk, inst_load=il, fault=self.fault)
 
     def run_persistent(self, batches,
                        reconfig: Optional[Reconfiguration] = None,
@@ -483,10 +497,12 @@ class VSNPipeline:
         if reconfig is not None:
             frontier = self._frontier_after(batches[:max(reconfig_at, 0)],
                                             frontier0)
-        return self.run_persistent_staged(self.stage_super(batches),
-                                          reconfig=reconfig,
-                                          reconfig_at=reconfig_at,
-                                          frontier=frontier)
+        out = self.run_persistent_staged(self.stage_super(batches),
+                                         reconfig=reconfig,
+                                         reconfig_at=reconfig_at,
+                                         frontier=frontier)
+        raise_on_fault(out.fault)
+        return out
 
     def persistent_graphs(self) -> Dict[tuple, dict]:
         """For each captured super-batch shape: the kernel launches of one
@@ -501,15 +517,19 @@ class VSNPipeline:
 
     def _persistent_ticks(self, sg, epoch, sigma, stack, ctrl, rc, fmu_new,
                           active_new):
-        """The K ticks (the scan body), with the outputs stacked."""
+        """The K ticks (the scan body), with the outputs stacked and the
+        ticks' bounded-expiry flag last."""
         stack = inject_ctrl(stack, ctrl, rc, self.op.n_inputs)
         ticks = []
-        for i in range(stack.tau.shape[0]):
-            (sg, epoch, sigma, *out) = vsn.pipeline_tick(
-                sg, epoch, sigma, tree_map(lambda a: a[i], stack), fmu_new,
-                active_new, self._tick_with_epoch, self._inst_load)
-            ticks.append(out)
-        return (sg, epoch, sigma) + tuple(vsn.stack(x) for x in zip(*ticks))
+        with expiry_faults() as flags:
+            for i in range(stack.tau.shape[0]):
+                (sg, epoch, sigma, *out) = vsn.pipeline_tick(
+                    sg, epoch, sigma, tree_map(lambda a: a[i], stack),
+                    fmu_new, active_new, self._tick_with_epoch,
+                    self._inst_load)
+                ticks.append(out)
+        return ((sg, epoch, sigma) + tuple(vsn.stack(x) for x in zip(*ticks))
+                + (any_fault(flags),))
 
     def _replay(self, key, operands):
         """The card's persistent call: replay the shape's graph, or, on the
@@ -523,7 +543,7 @@ class VSNPipeline:
         g.graph.replay()
         dispatch.add_launches(g.launches)
         g.replays += 1
-        return g.state + tuple(tree_map(torch.clone, o) for o in g.outs)
+        return g.state + tuple(tree_map(_clone, o) for o in g.outs)
 
     def _capture(self, key, operands):
         dev = self.device
@@ -539,7 +559,8 @@ class VSNPipeline:
             first = self._persistent_ticks(*args)
         cur.wait_stream(side)
         for t in tree_leaves(first):
-            t.record_stream(cur)
+            if t is not None:
+                t.record_stream(cur)
 
         # kept after capture, so that its nodes can be counted
         graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -555,9 +576,9 @@ class VSNPipeline:
             raise GraphCaptureError(
                 f"the tick function cannot be captured as a CUDA graph "
                 f"({type(cause).__name__}: {cause}); the persistent driver "
-                f"needs a tick with no host read (the fast paths; the "
-                f"general O+ tick reads its expiry condition back to the "
-                f"host each round, ROADMAP.md queue 1 item 3)") from e
+                f"needs a tick function that reads nothing back to the "
+                f"host (no .item(), bool() or nonzero on a device value), "
+                f"as the fast paths and the general O+ tick are") from e
         capture_s = time.perf_counter() - t0
         nodes = graph_nodes(graph)
         t0 = time.perf_counter()
@@ -568,6 +589,10 @@ class VSNPipeline:
             outs=tuple(out[3:]), launches=tally, capture_s=capture_s,
             instantiate_s=instantiate_s, nodes=nodes)
         return first
+
+
+def _clone(a):
+    return None if a is None else a.clone()
 
 
 def _copy_state(dst, src) -> None:
@@ -625,19 +650,23 @@ class SNPipeline:
             dataclasses.replace(ready, valid=pre), epoch.fmu, epoch.active)))
         ready_pre = dataclasses.replace(
             ready, valid=pre | (ready.is_control & ready.valid))
-        sigmas, outs1 = sn.run_tick(self.op, self.sigmas, ready_pre, epoch.fmu,
-                                    epoch.active, self._tick)
+        with expiry_faults() as flags:
+            sigmas, outs1 = sn.run_tick(self.op, self.sigmas, ready_pre,
+                                        epoch.fmu, epoch.active, self._tick)
 
-        live = ready.valid & ~ready.is_control
-        w_end = torch.where(live, ready.tau, 0).max()
-        fmu_old = epoch.fmu
-        epoch, switched = elastic.advance_epoch(epoch, w_end)
-        if bool(switched):      # SN pays the state transfer (§2.5)
-            sigmas, moved = elastic.sn_transfer(sigmas, fmu_old, epoch.fmu)
-            self.bytes_transferred += moved
+            live = ready.valid & ~ready.is_control
+            w_end = torch.where(live, ready.tau, 0).max()
+            fmu_old = epoch.fmu
+            epoch, switched = elastic.advance_epoch(epoch, w_end)
+            if bool(switched):      # SN pays the state transfer (§2.5)
+                sigmas, moved = elastic.sn_transfer(sigmas, fmu_old,
+                                                    epoch.fmu)
+                self.bytes_transferred += moved
 
-        ready_post = dataclasses.replace(ready, valid=post)
-        self.sigmas, outs2 = sn.run_tick(self.op, sigmas, ready_post,
-                                         epoch.fmu, epoch.active, self._tick)
+            ready_post = dataclasses.replace(ready, valid=post)
+            self.sigmas, outs2 = sn.run_tick(self.op, sigmas, ready_post,
+                                             epoch.fmu, epoch.active,
+                                             self._tick)
+        raise_on_fault(any_fault(flags))
         self.epoch = epoch
         return outs1, outs2, switched

@@ -4,8 +4,9 @@ Held against ``src/repro/core/sn.py``.  forwardSN copies each tuple to
 every instance responsible for at least one of its keys (the duplication
 of Theorem 1); each instance keeps a dedicated state ``sigma_j``, stacked
 on a leading instance axis.  Copies are per-instance valid masks over the
-same lane layout.  The reference ``vmap``s over instances; here it is a
-loop over ``n_max``.
+same lane layout.  The reference ``vmap``s over instances; the general
+O+ tick runs them all in one pass (``operator.tick_instances`` on the
+stacked states), a fast-path tick function once an instance.
 """
 
 from __future__ import annotations
@@ -16,8 +17,8 @@ from typing import Callable
 import torch
 
 from repro_torch.core import tuples as T
-from repro_torch.core.operator import OperatorDef, tick
-from repro_torch.core.vsn import responsibility, stack
+from repro_torch.core.operator import OperatorDef, tick, tick_instances
+from repro_torch.core.vsn import responsibilities, responsibility, stack
 from repro_torch.tree import tree_map
 
 
@@ -50,6 +51,11 @@ def run_tick(op: OperatorDef, states_j, ready: T.TupleBatch,
     route = route_matrix(ready, fmu, active)
     live = ready.valid & ~ready.is_control
     w_end = torch.where(live, ready.tau, 0).max()
+    if tick_fn is tick:
+        return tick_instances(op, states_j, ready,
+                              responsibilities(fmu, active),
+                              live=route.t() & ~ready.is_control[None],
+                              explicit_w=w_end, stacked=True)
     states, outs = [], []
     for j in range(active.shape[0]):
         queued = dataclasses.replace(ready, valid=route[:, j])

@@ -8,10 +8,14 @@ and processes exactly the keys it is responsible for under the epoch's
 only, so the merged state is "row k from instance f_mu(k)" and a
 reconfiguration moves no state (Theorem 3).
 
-The reference ``vmap``s over instances; here the instance axis is a loop
-over ``n_max`` whose states and outputs are stacked on a leading axis (the
-reference's layout, which ``flatten_outputs`` and the merges read).  The
-CUDA kernels run once per instance.
+The reference ``vmap``s over instances.  Here the general O+ tick runs
+every instance in one pass (``operator.tick_instances``, a leading
+``[n_max]`` axis on ``resp``, the state and the outputs); a fast-path tick
+function runs once an instance in a loop, computing its
+instance-independent part once (``operator.instances_share``), and the
+CUDA kernels run once per instance.  Both give the states and outputs
+stacked on a leading axis (the reference's layout, which
+``flatten_outputs`` and the merges read).
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from repro_torch.core import tuples as T
 from repro_torch.core.aggregate import FastAggState
 from repro_torch.core.join import FastJoinState
 from repro_torch.core.operator import (OperatorDef, OpState, Outputs,
-                                       instances_share, tick)
+                                       instances_share, tick, tick_instances)
 from repro_torch.tree import tree_map
 
 
@@ -34,6 +38,12 @@ def responsibility(fmu: torch.Tensor, j: int, active: torch.Tensor
                    ) -> torch.Tensor:
     """resp[k] = (f_mu(k) == j) for an active instance, else empty."""
     return (fmu == j) & active[j]
+
+
+def responsibilities(fmu: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """Every instance's ``responsibility`` stacked: bool ``[n_max, K]``."""
+    inst = torch.arange(active.shape[0], device=fmu.device)
+    return (fmu[None, :] == inst[:, None]) & active[:, None]
 
 
 def stack(trees):
@@ -81,6 +91,10 @@ def run_tick(op: OperatorDef, state, ready: T.TupleBatch,
     ``tick_fn(op, state, ready, resp, explicit_w=None) -> (state, outs)``;
     returns the merged state and the per-instance stacked outputs.
     """
+    if tick_fn is tick:
+        stacked, outs = tick_instances(op, state, ready,
+                                       responsibilities(fmu, active))
+        return merge_fn(stacked, fmu), outs
     states, outs = [], []
     with instances_share():
         for j in range(active.shape[0]):

@@ -111,6 +111,8 @@ def main(argv=None):
           f"{toks} tokens over {eng.steps} decode rounds "
           f"({args.mode} mode, {eng.pool.n_active}/{args.instances} "
           f"replicas at end, on {eng.device})")
+    if eng.cfg.kind == "moe":
+        print(f"MoE tokens dropped by expert capacity: {int(eng.dropped)}")
     for ev in pipe.reconfig_events:
         print(f"  reconfig -> n_active={ev['n_active']} "
               f"kv_bytes_moved={ev['kv_bytes_moved']} "

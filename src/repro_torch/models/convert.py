@@ -7,7 +7,8 @@ leaf).  Each leaf keeps its dtype; a bfloat16 leaf (numpy's ``bfloat16``
 extension dtype, which numpy itself cannot compute in) goes through
 float32, which holds every bfloat16 value exactly.  Layers stacked
 ``[L, ...]`` under ``scan_layers`` become the port's list of per-layer
-dicts.  ``from_reference_caches`` does the same for ``init_caches``'
+dicts, whatever they hold: attention, the dense ``mlp``, the ``moe``
+leaves (``router``, ``wg``, ``wu``, ``wd``, ``shared_*``) or rwkv's.  ``from_reference_caches`` does the same for ``init_caches``'
 stacked caches and states, whose layout the port keeps, so tests can hand
 both packages one slot pool.
 """

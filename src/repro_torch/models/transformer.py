@@ -1,17 +1,22 @@
 """Decoder stack assembly: block dispatch by arch kind, embeddings/unembed.
 
 Held against ``src/repro/models/transformer.py`` for the kinds ``dense``
-(with ``window_pattern`` and ``frontend="embedding_stub"``) and ``rwkv``.
+(with ``window_pattern`` and ``frontend="embedding_stub"``), ``moe`` and
+``rwkv``.
 Layers are a Python list walked in order; the reference's
 ``scan_layers``/``remat`` have no counterpart in eager code.  Parameters
 are a dict with ``layers`` a list of per-layer dicts; caches and recurrent
 states keep the reference's stacked ``[L, B, ...]`` layout, and ``forward``
-updates them in place (the reference returns new arrays) and returns them.
+updates them in place (the reference returns new arrays) and returns them
+with the reference's ``aux``, the MoE tokens dropped over the layers.  With
+a slot pool (``lanes``) an MoE layer routes each batch row as a group of
+its own, as the reference's serving engine decodes each lane under its
+``vmap``; otherwise the ``[B, S]`` block is one group, as in the
+reference's ``forward``.
 ``init_params`` draws from an explicit ``torch.Generator`` on the target
 device: the reference's distributions, not JAX's bits (the tests carry
 the reference's own parameters across with ``convert.from_reference``).
-The ``moe`` and ``hybrid`` kinds and ``loss_fn`` (training) are not
-ported yet.
+The ``hybrid`` kind and ``loss_fn`` (training) are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,21 +26,20 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from repro_torch import device as _device
-from repro_torch.models import attention, rwkv as rwkv_mod
+from repro_torch.models import attention, moe as moe_mod, rwkv as rwkv_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (embed, init_dense, rms_norm, swiglu,
                                        unembed)
 
 BIG_WINDOW = 1 << 30
-KINDS = ("dense", "rwkv")
+KINDS = ("dense", "moe", "rwkv")
 
 
 def check_kind(cfg: ModelConfig) -> None:
     if cfg.kind not in KINDS:
         raise NotImplementedError(
             f"model kind {cfg.kind!r} ({cfg.name}) is not ported yet: the "
-            f"port has {KINDS}; moe and ssm/hybrid are ROADMAP.md queue 1 "
-            f"item 13's remaining modules")
+            f"port has {KINDS}; ssm/hybrid is ROADMAP.md queue 1 item 7")
 
 
 def layer_windows(cfg: ModelConfig) -> Optional[List[int]]:
@@ -58,6 +62,9 @@ def init_layer(gen, cfg: ModelConfig, dtype, device=None):
         p["cm"] = rwkv_mod.init_channel_mix(gen, cfg, dtype, device)
         return p
     p["attn"] = attention.init_attn(gen, cfg, dtype, device)
+    if cfg.kind == "moe":
+        p["moe"] = moe_mod.init_moe(gen, cfg, dtype, device)
+        return p
     p["mlp"] = {
         "wg": init_dense(gen, (d, cfg.d_ff), dtype=dtype, device=device),
         "wu": init_dense(gen, (d, cfg.d_ff), dtype=dtype, device=device),
@@ -67,9 +74,12 @@ def init_layer(gen, cfg: ModelConfig, dtype, device=None):
 
 
 def block_forward(p, x, positions, cfg: ModelConfig, *, window=None,
-                  cache=None, state=None, index=None):
-    """One decoder block.  Returns (x, cache, new_state).  ``index``: the
-    forward's ``attention.cache_index``, shared by its layers."""
+                  cache=None, state=None, index=None, per_row=False):
+    """One decoder block.  Returns (x, cache, new_state, aux), ``aux`` the
+    MoE tokens dropped (float32; None for the other kinds).  ``index``:
+    the forward's ``attention.cache_index``, shared by its layers;
+    ``per_row``: route the MoE per batch row."""
+    aux = None
     if cfg.kind == "rwkv":
         h, shift_tm, wkv = rwkv_mod.time_mix_forward(
             p["tm"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg,
@@ -80,15 +90,20 @@ def block_forward(p, x, positions, cfg: ModelConfig, *, window=None,
             state["shift_cm"])
         x = x + h
         return x, cache, {"shift_tm": shift_tm, "shift_cm": shift_cm,
-                          "wkv": wkv}
+                          "wkv": wkv}, aux
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     attn_out, cache = attention.attn_forward(
         p["attn"], h, positions, cfg, window=window, cache=cache,
         index=index)
     x = x + attn_out
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    x = x + swiglu(h, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"])
-    return x, cache, state
+    if cfg.kind == "moe":
+        ffn_out, dropped = moe_mod.moe_forward(p["moe"], h, cfg,
+                                               per_row=per_row)
+        aux = dropped.to(torch.float32)
+    else:
+        ffn_out = swiglu(h, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"])
+    return x + ffn_out, cache, state, aux
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None):
@@ -130,8 +145,9 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, caches=None,
     """inputs: tokens [B, S] (frontend="token") or precomputed frontend
     embeddings [B, S, D]; positions: [S] or [B, S].  ``lanes`` (i64[B])
     maps batch rows to rows of ``caches``/``states`` (a slot pool); left
-    out, row b is row b.  Returns (logits, caches, states); caches and
-    states are updated in place (rwkv without states starts from zeros)."""
+    out, row b is row b.  Returns (logits, caches, states, aux); caches
+    and states are updated in place (rwkv without states starts from
+    zeros)."""
     check_kind(cfg)
     if cfg.frontend == "token":
         x = embed(inputs, params["embedding"])
@@ -141,7 +157,8 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, caches=None,
     if cfg.kind == "rwkv" and states is None:
         _, states = init_caches(cfg, x.shape[0], 0, x.device)
     index = (attention.cache_index(positions, x.shape[0], lanes)
-             if caches is not None and cfg.kind == "dense" else None)
+             if caches is not None and cfg.kind != "rwkv" else None)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, layer_p in enumerate(params["layers"]):
         cache = (None if caches is None
                  else {k: v[i] for k, v in caches.items()})
@@ -149,10 +166,12 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, caches=None,
         if states is not None:
             state = {k: v[i] if lanes is None else v[i][lanes]
                      for k, v in states.items()}
-        x, _, new_state = block_forward(
+        x, _, new_state, layer_aux = block_forward(
             layer_p, x, positions, cfg,
             window=None if windows is None else windows[i], cache=cache,
-            state=state, index=index)
+            state=state, index=index, per_row=lanes is not None)
+        if layer_aux is not None:
+            aux = aux + layer_aux
         if states is not None:
             for k, v in new_state.items():
                 if lanes is None:
@@ -161,4 +180,4 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, caches=None,
                     states[k][i][lanes] = v
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(x, params.get("unembed", params["embedding"]))
-    return logits, caches, states
+    return logits, caches, states, aux

@@ -18,7 +18,11 @@ with ``vmap`` over per-slot positions.  The port batches exactly the
 running lanes: each lane carries its own position, the attention kernel
 reads and writes each lane's slot of the pool in place (``lanes``), and
 the recurrent states are gathered and written back by slot.  No pad lane
-exists, so none can write back, and there are no buckets to compile.
+exists, so none can write back, and there are no buckets to compile.  An
+MoE model routes each lane as a group of its own in that one forward (the
+capacity is per lane, as under the reference's per-lane ``vmap``), and
+the tokens the experts drop are counted (``dropped``, a device total;
+``dropped_decode`` the decode rounds' share).
 """
 
 from __future__ import annotations
@@ -146,6 +150,9 @@ class ServingEngine:
         self.requests_done = 0
         self.prefills = 0
         self.decode_rounds = 0
+        self.dropped = torch.zeros((), dtype=torch.float32,
+                                   device=self.device)
+        self.dropped_decode = torch.zeros_like(self.dropped)
 
     def submit(self, req: Request):
         self.waiting.append(req)
@@ -165,9 +172,11 @@ class ServingEngine:
             with _obs.span("serve.prefill"):
                 toks = torch.as_tensor(np.asarray(req.prompt, np.int64)[None],
                                        device=self.device)
-                logits, _, _ = M.prefill_with_cache(
+                logits, _, _, aux = M.prefill_with_cache(
                     self.params, toks, pool.caches, pool.states, cfg=self.cfg,
-                    lanes=torch.tensor([slot], device=self.device))
+                    lanes=torch.tensor([slot], device=self.device),
+                    with_aux=True)
+                self.dropped += aux
                 first = int(logits[0].argmax())
             self.prefills += 1
             pool.pos[slot] = len(req.prompt)
@@ -195,11 +204,13 @@ class ServingEngine:
             lanes = np.asarray([r.slot for r in reqs], np.int64)
             as_dev = lambda a: torch.as_tensor(a, device=self.device)
             with _obs.span("serve.decode"):
-                logits, _, _ = M.decode_step(
+                logits, _, _, aux = M.decode_step(
                     self.params, pool.caches, pool.states,
                     as_dev(np.asarray([r.out[-1] for r in reqs], np.int64)),
                     as_dev(pool.pos[lanes].astype(np.int64)), cfg=self.cfg,
-                    lanes=as_dev(lanes))
+                    lanes=as_dev(lanes), with_aux=True)
+                self.dropped += aux
+                self.dropped_decode += aux
                 toks = logits.argmax(dim=-1).cpu().numpy()  # sync: real time
             self.decode_rounds += 1
             for i, req in enumerate(reqs):

@@ -5,9 +5,9 @@ and recording), ``elastic_drill``'s straggler, crash, serving and ingest drills
 with the reference's switch bytes, and the refusals of the unported mesh
 flags.  Every launcher runs on the card unless ``--device cpu`` is given.
 
-``elastic_drill``'s ``recovery`` drill runs on the card (``chip_smoke.py``'s
-``launchers`` phase): at the reference's size (12 ticks of 64 tweets over
-a tier) the port's general O+ tick takes minutes on this CPU.  Its
+``elastic_drill``'s ``recovery`` drills run on the card (``chip_smoke.py``'s
+``launchers`` phase); at the reference's size (12 ticks of 64 tweets over
+a tier) ``recovery`` takes ~25 s on a CPU, too long for this file.  Their
 harness, ``kill_restore_drill``, is held against the reference in
 ``tests/test_torch_recovery.py``."""
 

@@ -1,7 +1,9 @@
 """The port's models against the reference on the CPU: reduced qwen3-14b
-(dense GQA, qk-norm), rwkv6-7b (the linear-scan recurrence) and gemma3-4b
-(sliding windows; 6 layers so that the 6th is global), with the
-reference's own parameters carried across by ``convert.from_reference``.
+(dense GQA, qk-norm), rwkv6-7b (the linear-scan recurrence), gemma3-4b
+(sliding windows; 6 layers so that the 6th is global), deepseek-moe-16b
+and qwen3-moe-30b-a3b (MoE, one-shard ``vsn`` dispatch; shared experts in
+deepseek), with the reference's own parameters carried across by
+``convert.from_reference``.
 
 ``forward``, ``prefill_with_cache`` and several ``decode_step``s agree
 with the reference's logits within 1e-4 in float32, with equal greedy
@@ -10,7 +12,13 @@ tokens and agree within 4e-2 on logits of magnitude < 1: the reference
 rounds attention logits to bfloat16 (its einsums return bfloat16) where
 the kernel keeps them in float32, and XLA fuses elementwise chains in
 float32 where PyTorch rounds each operation, so the two differ by a few
-bfloat16 ulps (measured up to 1.3e-2)."""
+bfloat16 ulps (measured up to 1.3e-2).  The MoE archs' ``vsn`` dispatch
+rounds its expert sum to bfloat16 even in float32 (the reference's
+cross-shard sum dtype), so a float32 rounding difference upstream now and
+then moves one MoE output by a bfloat16 ulp: their float32 logits and
+caches agree within ``MOE_F32_ATOL``, one bfloat16 ulp at 1.0 (measured up
+to 1.2e-4 on the logits and 6.5e-4 on the keys after a prefill), with
+equal greedy tokens; ``moe_forward`` alone agrees within 1e-5."""
 
 import dataclasses
 import functools
@@ -25,10 +33,13 @@ import jax.numpy as jnp
 from repro.configs import canon, get_config, reduced
 from repro.models import model as RM, transformer as RT
 from repro_torch import configs as pconfigs
-from repro_torch.models import convert, model as PM, transformer as PT
+from repro_torch.models import convert, model as PM, moe as PMOE
+from repro_torch.models import transformer as PT
 
-ARCHS = ["qwen3-14b", "rwkv6-7b", "gemma3-4b"]
+ARCHS = ["qwen3-14b", "rwkv6-7b", "gemma3-4b", "deepseek-moe-16b",
+         "qwen3-moe-30b-a3b"]
 BF16_ATOL = 4e-2
+MOE_F32_ATOL = 2.0 ** -8
 S, MAX_SEQ, N_DECODE = 12, 24, 4
 
 
@@ -59,11 +70,12 @@ def pair(request):
     return _pair(*request.param)
 
 
-def _logits_close(want, got, dtype):
+def _logits_close(want, got, dtype, kind="dense"):
     want = np.asarray(want, np.float32)
     got = got.float().numpy()
     if dtype == "float32":
-        np.testing.assert_allclose(got, want, atol=1e-4)
+        np.testing.assert_allclose(
+            got, want, atol=MOE_F32_ATOL if kind == "moe" else 1e-4)
         np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
     else:
         np.testing.assert_allclose(got, want, atol=BF16_ATOL)
@@ -85,11 +97,12 @@ def test_forward_matches_reference(pair):
     toks = np.random.default_rng(0).integers(1, cfg.vocab, (2, S))
     want, _, _, _ = RT.forward(params, cfg, jnp.asarray(toks, jnp.int32),
                                jnp.arange(S))
-    got, _, _ = PT.forward(pp, pcfg, torch.from_numpy(toks), torch.arange(S))
-    _logits_close(want, got, cfg.dtype)
+    got, _, _, _ = PT.forward(pp, pcfg, torch.from_numpy(toks),
+                              torch.arange(S))
+    _logits_close(want, got, cfg.dtype, cfg.kind)
     last = PM.prefill_step(pp, torch.from_numpy(toks), cfg=pcfg)
     _logits_close(RM.prefill_step(params, jnp.asarray(toks, jnp.int32),
-                                  cfg=cfg), last, cfg.dtype)
+                                  cfg=cfg), last, cfg.dtype, cfg.kind)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -97,7 +110,8 @@ def test_decode_from_the_references_slot_pool(arch):
     """The reference fills a 3-slot pool (prefill into slots 0 and 2);
     ``from_reference_caches`` hands that pool to the port, and one decode
     step over lanes 2 and 0 from it gives the reference's logits
-    (float32)."""
+    (float32) as its serving engine computes them: each lane alone (its
+    per-lane ``vmap``), so an MoE's capacity is a lane's, not shared."""
     cfg, params, pcfg, pp = _pair(arch, "float32")
     toks = np.random.default_rng(2).integers(1, cfg.vocab, (2, S))
     rc, rs = RT.init_caches(cfg, 3, MAX_SEQ)
@@ -113,14 +127,14 @@ def test_decode_from_the_references_slot_pool(arch):
         jax.tree.map(np.asarray, rc), jax.tree.map(np.asarray, rs), "cpu")
     tok = np.array([5, 7], np.int32)
     lanes = np.array([2, 0])
-    want, _, _ = RM.decode_step(params,
-                                jax.tree.map(lambda a: a[:, lanes], rc),
-                                jax.tree.map(lambda a: a[:, lanes], rs),
-                                jnp.asarray(tok), jnp.int32(S), cfg=cfg)
+    want = np.concatenate([np.asarray(RM.decode_step(
+        params, jax.tree.map(lambda a: a[:, [lane]], rc),
+        jax.tree.map(lambda a: a[:, [lane]], rs), jnp.asarray(tok[[i]]),
+        jnp.int32(S), cfg=cfg)[0]) for i, lane in enumerate(lanes)])
     got, _, _ = PM.decode_step(pp, pc, ps, torch.from_numpy(tok).long(),
                                torch.tensor([S, S]), cfg=pcfg,
                                lanes=torch.from_numpy(lanes))
-    _logits_close(want, got, "float32")
+    _logits_close(want, got, "float32", cfg.kind)
 
 
 def test_prefill_and_decode_match_reference(pair):
@@ -137,7 +151,7 @@ def test_prefill_and_decode_match_reference(pair):
     got, pc, ps = PM.prefill_with_cache(pp, torch.from_numpy(toks), pc, ps,
                                         cfg=pcfg)
     for step in range(N_DECODE + 1):
-        _logits_close(want, got, cfg.dtype)
+        _logits_close(want, got, cfg.dtype, cfg.kind)
         if step == N_DECODE:
             break
         tok = np.asarray(jnp.argmax(want, axis=-1))
@@ -151,9 +165,10 @@ def test_prefill_and_decode_match_reference(pair):
     for ref_tree, port_tree in ((rc, pc), (rs, ps)):
         assert (ref_tree is None) == (port_tree is None)
         for name in (ref_tree or {}):
-            np.testing.assert_allclose(port_tree[name].numpy(),
-                                       np.asarray(ref_tree[name]),
-                                       atol=1e-4, err_msg=name)
+            np.testing.assert_allclose(
+                port_tree[name].numpy(), np.asarray(ref_tree[name]),
+                atol=MOE_F32_ATOL if cfg.kind == "moe" else 1e-4,
+                err_msg=name)
 
 
 def test_per_lane_positions_and_lanes_equal_one_lane_at_a_time():
@@ -242,7 +257,7 @@ def test_embedding_stub_frontend_matches_reference():
     x = np.random.default_rng(2).normal(0, 1, (2, S, cfg.d_model))
     x = x.astype(np.float32)
     want, _, _, _ = RT.forward(params, cfg, jnp.asarray(x), jnp.arange(S))
-    got, _, _ = PT.forward(pp, pcfg, torch.from_numpy(x), torch.arange(S))
+    got, _, _, _ = PT.forward(pp, pcfg, torch.from_numpy(x), torch.arange(S))
     _logits_close(want, got, "float32")
 
 
@@ -283,7 +298,17 @@ def test_init_params_on_the_device_has_the_references_shapes():
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "hymba-1.5b"])
 def test_moe_and_hybrid_are_not_ported_yet(arch):
+    """What is left: the hybrid kind, and the MoE's ``vsn`` dispatch over
+    more than one expert shard (it needs the mesh)."""
     _, pcfg = _configs(arch)
+    if arch == "deepseek-moe-16b":
+        p = PMOE.init_moe(torch.Generator().manual_seed(0), pcfg,
+                          torch.float32, "cpu")
+        x = torch.zeros(1, 2, pcfg.d_model)
+        assert PMOE.moe_forward(p, x, pcfg)[0].shape == x.shape
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            PMOE.moe_forward(p, x, pcfg, n_shards=2)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PT.init_params(pcfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -291,3 +316,115 @@ def test_moe_and_hybrid_are_not_ported_yet(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PT.forward({}, pcfg, torch.zeros(1, 2, dtype=torch.long),
                    torch.arange(2))
+
+
+# ------------------------------------------------------------------ MoE --
+MOE_ARCHS = ["deepseek-moe-16b", "qwen3-moe-30b-a3b"]
+
+
+def _moe_pair(arch, dispatch, cf):
+    from repro.models import moe as RMOE
+    cfg, pcfg = _configs(arch, "float32")
+    upd = dict(dispatch=dispatch, **({} if cf is None
+                                     else {"capacity_factor": cf}))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **upd))
+    pcfg = dataclasses.replace(pcfg,
+                               moe=dataclasses.replace(pcfg.moe, **upd))
+    p = RMOE.init_moe(jax.random.PRNGKey(1), cfg, jnp.float32)
+    pp = {k: torch.from_numpy(np.array(v)) for k, v in p.items()}
+    return RMOE, cfg, p, pcfg, pp
+
+
+@pytest.mark.parametrize("cf", [None, 8.0], ids=["drops", "ample"])
+@pytest.mark.parametrize("dispatch", ["sn", "vsn"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_forward_matches_reference(arch, dispatch, cf):
+    """``moe_forward`` for both dispatches against the reference's: the
+    configs' capacity factor drops tokens (counted alike), a factor of 8
+    drops none; outputs within 1e-5 (float32)."""
+    RMOE, cfg, p, pcfg, pp = _moe_pair(arch, dispatch, cf)
+    x = np.random.default_rng(0).normal(size=(2, 12, cfg.d_model))
+    x = x.astype(np.float32)
+    want, wd = RMOE.moe_forward(p, jnp.asarray(x), cfg)
+    got, gd = PMOE.moe_forward(pp, torch.from_numpy(x), pcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    assert int(gd) == int(wd)
+    assert (int(wd) > 0) == (cf is None)
+
+
+def test_moe_route_breaks_ties_toward_the_lower_expert():
+    """Equal router probabilities: ``jax.lax.top_k``'s order (lower index
+    first), which ``torch.topk`` does not promise."""
+    from repro.models import moe as RMOE
+    router = np.zeros((4, 8), np.float32)
+    router[:, 5] = 1.0
+    x = np.ones((3, 4), np.float32)
+    x[1] = 0.0                                         # all 8 tie
+    jw, ji = RMOE._route(jnp.asarray(x), jnp.asarray(router), 3)
+    pw, pi = PMOE._route(torch.from_numpy(x), torch.from_numpy(router), 3)
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(pw.numpy(), np.asarray(jw), atol=1e-7)
+    assert pi[1].tolist() == [0, 1, 2]
+
+
+def test_moe_vsn_equals_sn_with_headroom():
+    """``tests/test_substrate.py``'s check on the port: with capacity far
+    above the load both dispatchers compute the same function (to the
+    vsn sum's bfloat16 rounding)."""
+    from repro_torch.models.config import ModelConfig, MoEConfig
+
+    def cfg(dispatch):
+        return ModelConfig(
+            name="moe-test", n_layers=1, d_model=32, n_heads=4, n_kv_heads=2,
+            d_head=8, d_ff=64, vocab=64, kind="moe", dtype="float32",
+            moe=MoEConfig(n_experts=8, top_k=2, d_ff_expert=16, n_shared=1,
+                          dispatch=dispatch, capacity_factor=8.0))
+    p = PMOE.init_moe(torch.Generator().manual_seed(1), cfg("vsn"),
+                      torch.float32, "cpu")
+    x = torch.randn(2, 8, 32, generator=torch.Generator().manual_seed(2))
+    yv, dv = PMOE.moe_forward(p, x, cfg("vsn"))
+    ys, ds = PMOE.moe_forward(p, x, cfg("sn"))
+    assert int(dv) == 0 and int(ds) == 0
+    np.testing.assert_allclose(yv.numpy(), ys.numpy(), atol=3e-2, rtol=1e-2)
+    assert not torch.equal(yv, ys)          # the vsn sum's bf16 rounding
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_decode_routes_each_lane_alone(arch):
+    """A decode over lanes at mixed depths of a slot pool gives each lane
+    what a batch-1 decode gives (float32): with all lanes in one group the
+    capacity (1 an expert at the configs' factor) drops tokens where two
+    lanes pick one expert, and the logits differ."""
+    _, pcfg = _configs(arch, "float32")
+    pp = PT.init_params(pcfg, seed=3, device="cpu")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, pcfg.vocab, n) for n in (3, 7, 5, 4)]
+    pool_c, _ = PT.init_caches(pcfg, 6, MAX_SEQ, "cpu")
+    slots = [4, 0, 2, 5]
+    singles, firsts = [], []
+    for p, slot in zip(prompts, slots):
+        c, _ = PT.init_caches(pcfg, 1, MAX_SEQ, "cpu")
+        lg, c, _ = PM.prefill_with_cache(pp, torch.from_numpy(p[None]), c,
+                                         None, cfg=pcfg)
+        PM.prefill_with_cache(pp, torch.from_numpy(p[None]), pool_c, None,
+                              cfg=pcfg, lanes=torch.tensor([slot]))
+        tok = lg.argmax(-1)
+        lg, c, _ = PM.decode_step(pp, c, None, tok, len(p), cfg=pcfg)
+        singles.append(lg[0])
+        firsts.append(int(tok))
+    pos = torch.tensor([len(p) for p in prompts])
+    lg, _, _, dropped = PM.decode_step(
+        pp, pool_c, None, torch.tensor(firsts), pos, cfg=pcfg,
+        lanes=torch.tensor(slots), with_aux=True)
+    torch.testing.assert_close(lg, torch.stack(singles), atol=1e-5,
+                               rtol=1e-5)
+    assert float(dropped) == 0.0
+    shared_c, _ = PT.init_caches(pcfg, 6, MAX_SEQ, "cpu")
+    for p, slot in zip(prompts, slots):
+        PM.prefill_with_cache(pp, torch.from_numpy(p[None]), shared_c, None,
+                              cfg=pcfg, lanes=torch.tensor([slot]))
+    one_group = [{k: v[:, slots] for k, v in shared_c.items()}, None]
+    lg1, _, _, dropped1 = PM.decode_step(
+        pp, one_group[0], None, torch.tensor(firsts), pos, cfg=pcfg,
+        with_aux=True)
+    assert float(dropped1) > 0 and not torch.allclose(lg1, lg, atol=1e-3)

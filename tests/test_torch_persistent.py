@@ -10,6 +10,7 @@ join and the general O+ tick.  Then the pieces the driver needed: the
 aggregate's expiry with no host read, the join's fixed-size emission, and
 the async runtime's super-batch grouping."""
 
+import contextlib
 import dataclasses
 import functools
 
@@ -20,6 +21,8 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp
 
+from _tick_oracle import _emit as _oracle_emit
+from _tick_oracle import expire_all as _oracle_expire_all
 from _torch_bridge import assert_tree_equal, np_tree, port_reconfig, to_port
 from repro.core import aggregate as JA
 from repro.core import join as JJ
@@ -38,7 +41,7 @@ from repro_torch.core import tuples as PT
 from repro_torch.core.async_runtime import (AsyncStreamRuntime, StagedSuper,
                                             run_sync)
 from repro_torch.core.runtime import VSNPipeline as PVSN
-from repro_torch.core.runtime import inject_ctrl
+from repro_torch.core.runtime import PersistentOut, inject_ctrl
 from repro_torch.core.vsn import merge_fast_state as p_merge
 from repro_torch.core.windows import WindowSpec as PWS
 from repro_torch.io import NullSink, SyntheticSource
@@ -175,16 +178,11 @@ def _check(got, *wants):
 PATHS = ["count", "join", "general"]
 
 
-def _n(path, n):
-    """The general O+ tick runs tuple by tuple: fewer ticks keep it quick."""
-    return min(n, 4) if path == "general" else n
-
-
 # ------------------------------------------------ the persistent driver --
 
 @pytest.mark.parametrize("path", PATHS)
 def test_persistent_matches_sequential_and_reference(path):
-    batches = _stream(path, _n(path, 6))
+    batches = _stream(path, 6)
     jp, pp = _pipes(path)
     got = _persistent(pp, batches)
     _check(got, _sequential(_pipes(path)[1], batches),
@@ -206,7 +204,7 @@ def test_consecutive_super_batches_thread_state(path):
 @pytest.mark.parametrize("path", PATHS)
 @pytest.mark.parametrize("rc_at", [0, 3])
 def test_midscan_reconfig_matches_sequential_and_reference(path, rc_at):
-    batches = _stream(path, _n(path, 6))
+    batches = _stream(path, 6)
     rc = _reconfig()
     jp, pp = _pipes(path)
     got = _persistent(pp, batches, rc, rc_at)
@@ -367,7 +365,7 @@ def _expiry_cases():
 def _while_loop_expiry(op, st, w, resp, key_ids, plan=None):
     """``tick_fast``'s expiry as it was: ``_expire_all``'s host-read
     ``while`` into an empty buffer."""
-    return POP._expire_all(op, st, POP._empty_outputs(
+    return _oracle_expire_all(op, st, POP._empty_outputs(
         op.out_cap, op.payload_out, resp.device), w, resp, key_ids)
 
 
@@ -436,7 +434,7 @@ def test_expire_closed_equals_expire_all(wt, seed):
         w = torch.tensor(spec.right_of(n0 + gap) - 1 + int(rng.integers(0, 2)),
                          dtype=torch.int32)
         resp = torch.from_numpy(rng.random(k) < 0.8)
-        want_st, want = POP._expire_all(
+        want_st, want = _oracle_expire_all(
             op, st, POP._empty_outputs(op.out_cap, op.payload_out, CPU), w,
             resp, key_ids)
         got_st, got = POP.expire_closed(op, st, w, resp, key_ids)
@@ -477,12 +475,12 @@ def _join_nonzero(window, f_j, st, ready, resp, out_cap):
     bi, rest = idx // (k_virt * ring), idx % (k_virt * ring)
     pay1 = torch.cat([ready.payload[bi], st.pay[rest // ring, rest % ring]],
                      dim=-1)
-    outs = POP._emit(outs, ready.tau[bi] + window.wa, pay1,
+    outs = _oracle_emit(outs, ready.tau[bi] + window.wa, pay1,
                      torch.ones_like(idx, dtype=torch.bool))
     idx = hit2.reshape(-1).nonzero().squeeze(1)
     pay2 = torch.cat([ready.payload[idx // b], ready.payload[idx % b]],
                      dim=-1)
-    return POP._emit(outs, ready.tau[idx // b] + window.wa, pay2,
+    return _oracle_emit(outs, ready.tau[idx // b] + window.wa, pay2,
                      torch.ones_like(idx, dtype=torch.bool))
 
 
@@ -532,13 +530,74 @@ def test_instances_share_builds_once_per_key():
     assert (a, b, c, d) == ("x", "x", "z", "w") and len(built) == 3
 
 
-def test_general_tick_is_refused_only_where_it_must_be_captured():
-    """On the CPU the plain loop runs every tick function, the general one
-    included (``test_persistent_matches_sequential_and_reference``); the
-    card's refusal is checked by ``chip_smoke.py`` (``q3_persistent``).
-    Here: the refusal names its cause and the roadmap item."""
+class _Capturing:
+    """A CUDA graph capture acted out on the CPU: inside ``graph`` every
+    read of a tensor's value by the host raises as the card's capture
+    does; streams, events and the graph object do nothing."""
+
+    READS = ("item", "__bool__", "tolist", "numpy", "cpu", "nonzero")
+
+    def __init__(self, monkeypatch):
+        self.mp = monkeypatch
+        stream = type("Stream", (), {
+            "wait_stream": lambda *a: None, "wait_event": lambda *a: None})
+        graph = type("Graph", (), {
+            "__init__": lambda self, **kw: None,
+            "instantiate": lambda self: None, "replay": lambda self: None,
+            "raw_cuda_graph": lambda self: 0})
+        for name, value in (("Stream", lambda *a: stream()),
+                            ("current_stream", lambda *a: stream()),
+                            ("stream", lambda s: contextlib.nullcontext()),
+                            ("CUDAGraph", graph), ("graph", self.graph)):
+            monkeypatch.setattr(torch.cuda, name, value)
+        monkeypatch.setattr(torch.Tensor, "record_stream", lambda *a: None)
+        monkeypatch.setattr(torch.Tensor, "pin_memory", lambda t: t)
+
+    @contextlib.contextmanager
+    def graph(self, g, capture_error_mode=None):
+        def refuse(*a, **kw):
+            raise RuntimeError("CUDA error: operation not permitted when "
+                               "stream is capturing")
+        with pytest.MonkeyPatch.context() as mp:
+            for name in self.READS:
+                mp.setattr(torch.Tensor, name, refuse)
+            mp.setattr(torch, "nonzero", refuse)
+            yield
+
+
+def _capture_first_call(pipe, batches):
+    """``run_persistent_staged``'s first call on the card: stage, then
+    ``_replay`` (warm-up, then capture) with no reconfiguration."""
+    stack = pipe.stage_super(batches)
+    k, width = stack.tau.shape
+    kmax, p = stack.keys.shape[-1], stack.payload.shape[-1]
+    operands = (stack, PT.empty_batch(pipe.op.n_inputs, kmax, p, CPU),
+                torch.tensor([0]), pipe.epoch.fmu, pipe.epoch.active)
+    return pipe._replay((k, width, kmax, p), operands)
+
+
+def test_a_tick_that_reads_the_host_cannot_be_captured(monkeypatch):
+    """The persistent driver captures the general O+ tick, which reads
+    nothing back to the host, as it captures the fast ones; a tick
+    function that calls ``.item()`` makes the call raise
+    ``GraphCaptureError``, naming the cause (the capture acted out on
+    the CPU, ``_Capturing``; ``chip_smoke.py`` captures and replays the
+    general tick on the card)."""
     from repro_torch.core.runtime import GraphCaptureError
-    assert issubclass(GraphCaptureError, RuntimeError)
+    batches = [to_port(b) for b in _stream("general", 2)]
     _, pp = _pipes("general")
-    out = pp.run_persistent([to_port(b) for b in _stream("general", 2)])
-    assert out.switched.shape == (2,) and not pp.persistent_graphs()
+    want = _sequential(_pipes("general")[1], _stream("general", 2))
+    _Capturing(monkeypatch)
+    first = _capture_first_call(pp, batches)
+    assert list(pp.persistent_graphs()) == [(2, 16 + 1, 3, 1)]
+    got = _ticks(PersistentOut(*first[3:8]))
+    _check(got, want)
+
+    def reads_the_host(o, s, r, m, explicit_w=None):
+        if int(r.valid.sum().item()) < 0:
+            raise AssertionError
+        return PA.tick_fast(o, "count", s, r, m)
+    _, fast = _pipes("count")
+    fast._tick = reads_the_host
+    with pytest.raises(GraphCaptureError, match="reads nothing back"):
+        _capture_first_call(fast, batches)
