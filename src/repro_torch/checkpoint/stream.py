@@ -31,7 +31,7 @@ single ``.npy``.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -73,11 +73,14 @@ class StreamCheckpointer:
         self.saved_steps: List[int] = []
 
     # ----------------------------------------------------------- capture --
-    def maybe_save(self, next_tick: int,
-                   frontier: np.ndarray) -> Optional[int]:
+    def maybe_save(self, next_tick: int, frontier: np.ndarray,
+                   before: Optional[Callable[[], None]] = None
+                   ) -> Optional[int]:
         """Called by the runtime at the boundary before dispatching tick
-        ``next_tick`` (``frontier`` = host frontier before it).  Returns the
-        step saved, or None when this boundary is not due."""
+        ``next_tick`` (``frontier`` = host frontier before it).  ``before``
+        runs when the boundary is due, ahead of the capture (the runtime
+        settles the tick still in flight there).  Returns the step saved,
+        or None when this boundary is not due."""
         tier_snap = None
         if self.tier is not None:
             tier_snap = self.tier.pop_snapshot(next_tick)
@@ -86,6 +89,8 @@ class StreamCheckpointer:
         elif not (self.every > 0 and next_tick > 0
                   and next_tick % self.every == 0):
             return None
+        if before is not None:
+            before()
         # host copy NOW: the dispatch right after this call overwrites the
         # pipeline's state
         with _obs.span("checkpoint.capture"):

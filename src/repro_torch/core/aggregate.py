@@ -82,8 +82,6 @@ def reduce_aggregate(window: WindowSpec, k_virt: int, *, width: int = 1,
                 torch.zeros((acc.shape[0],), dtype=torch.bool,
                             device=acc.device))
 
-    # each works row by row; f_s empties the slot
-    f_u.rowwise = f_o.rowwise = f_s.rowwise = f_s.clears_slot = True
     return OperatorDef(window=window, n_inputs=n_inputs, k_virt=k_virt,
                        payload_out=width + (1 if emit_key else 0),
                        init_zeta=init_zeta, f_u=f_u, f_o=f_o, f_s=f_s,

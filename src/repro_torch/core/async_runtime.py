@@ -13,8 +13,10 @@ stream live:
 * the **step loop** dispatches ``VSNPipeline.step_staged`` on the staged
   batch and never blocks on the outputs (sinks keep device tensors).  The
   only host reads are the sampled metrics of the *previous* tick (the
-  ``switched`` flag and the per-instance load vector), fetched while the
-  current tick computes;
+  ``switched`` flag, the general tick's expiry flag and the per-instance
+  load vector), fetched while the current tick computes.  A tick's
+  outputs reach the sink once its expiry flag is read, so a tick that
+  raises ``ExpiryBoundError`` delivers nothing;
 * the **control loop** closes §8.4-§8.5: each tick a ``MetricsBus``
   snapshot is fed to the controller, and an emitted ``Reconfiguration`` is
   injected mid-stream through the control-tuple path (Alg. 5), stamped
@@ -32,8 +34,11 @@ reconfiguration injected at its first tick, and one control-lane read
 Fault tolerance: a ``checkpointer`` (``checkpoint.StreamCheckpointer``)
 is asked at every dispatch boundary, a single tick's or a
 ``StagedSuper``'s, before the dispatch that overwrites the pipeline
-state; ``tick0`` offsets the tick ids of a resumed run so sink tick ids
-and checkpoint steps stay absolute across restarts.
+state.  At a boundary that is saved, the tick before it is drained of its
+expiry flag and its outputs first, so a checkpoint never holds a flagged
+tick's state or a step whose outputs the sink has not had.  ``tick0``
+offsets the tick ids of a resumed run so sink tick ids and checkpoint
+steps stay absolute across restarts.
 
 ``run_sync`` is the measured baseline: the same semantics as a plain host
 loop (generate, step, wait for the outputs).
@@ -83,6 +88,20 @@ class StagedSuper:
     metas: List[TickMeta]          # one per real tick, in order
     stack: T.TupleBatch            # on the pipeline's device
     n_pad: int
+
+
+@dataclasses.dataclass
+class _InFlight:
+    """A dispatched tick (or super-batch) whose control lane is not read
+    yet."""
+    tick_id: int
+    meta: TickMeta
+    outs: tuple                    # (outs_pre, outs_post), on the device
+    switched: Any
+    inst_load: Any
+    fault: Any                     # the expiry flag, or None
+    t_dispatch: float
+    settled: bool = False          # flag read, outputs handed to the sink
 
 
 @dataclasses.dataclass
@@ -324,18 +343,28 @@ class AsyncStreamRuntime:
         return np.bincount(self._fmu_shadow, weights=key_hist,
                            minlength=n_max).astype(np.int64)
 
-    def _drain(self, pending, idle_s: float = 0.0):
+    def _settle(self, p: Optional[_InFlight]) -> None:
+        """Read ``p``'s expiry flag (raising ``ExpiryBoundError``), then
+        hand its outputs to the sink; once."""
+        if p is None or p.settled:
+            return
+        raise_on_fault(p.fault)
+        self.sink.accept(p.tick_id, *p.outs)
+        p.settled = True
+
+    def _drain(self, p: _InFlight, idle_s: float = 0.0):
         """Fetch the sampled metrics of a completed tick (reads only the
-        ``switched`` flag and the per-instance load vector).  ``idle_s``,
-        the time the loop waited on the source for the NEXT tick, is
-        subtracted so a starved source does not inflate tick latency."""
-        tick_id, switched, inst_load, meta, t_dispatch, fault = pending
+        ``switched`` flag, the expiry flag and the per-instance load
+        vector) and settle it.  ``idle_s``, the time the loop waited on
+        the source for the NEXT tick, is subtracted so a starved source
+        does not inflate tick latency."""
+        tick_id, meta = p.tick_id, p.meta
         with _obs.span("runtime.drain"):
-            sw = bool(switched)
-            raise_on_fault(fault)
-            load = (_np(inst_load) if inst_load is not None
+            sw = bool(p.switched)
+            self._settle(p)
+            load = (_np(p.inst_load) if p.inst_load is not None
                     else self._host_inst_load(meta.key_hist))
-        latency = max(time.perf_counter() - t_dispatch - idle_s, 0.0)
+        latency = max(time.perf_counter() - p.t_dispatch - idle_s, 0.0)
         _obs.event("tick", tick_id=tick_id, n_tuples=meta.n_tuples,
                    latency_ms=latency * 1e3, queue_depth=self.queue.depth,
                    queue_high_water=self.queue.high_water, switched=sw,
@@ -403,11 +432,14 @@ class AsyncStreamRuntime:
                 meta = self._combine_meta(item.metas) if sup else item.meta
                 if self.checkpointer is not None:
                     # the boundary BEFORE this dispatch: the pipeline state
-                    # covers every tick < meta.tick_id; the capture copies
-                    # it to the host now, the disk write is asynchronous
+                    # covers every tick < meta.tick_id; if it is saved, the
+                    # tick in flight is settled first, then the capture
+                    # copies the state to the host; the disk write is
+                    # asynchronous
                     with _obs.span("runtime.checkpoint"):
-                        self.checkpointer.maybe_save(meta.tick_id,
-                                                     meta.frontier_before)
+                        self.checkpointer.maybe_save(
+                            meta.tick_id, meta.frontier_before,
+                            before=lambda: self._settle(pending))
                 rc = self._decide(meta)
                 t0 = time.perf_counter()
                 with _obs.span("runtime.dispatch"):
@@ -434,13 +466,13 @@ class AsyncStreamRuntime:
                     _obs.event("reconfig", tick_id=meta.tick_id,
                                epoch=int(rc.epoch),
                                n_active=int(np.asarray(rc.active).sum()))
-                self.sink.accept(meta.tick_id, o1, o2)
                 if pending is not None:
                     # tick T-1 is read while T computes; the wait for T's
                     # arrival was source idle time, not T-1's latency
                     self._drain(pending, idle_s=idle_s)
-                pending = (meta.tick_id, switched, inst_load, meta, t0,
-                           getattr(self.pipeline, "fault", None))
+                pending = _InFlight(meta.tick_id, meta, (o1, o2), switched,
+                                    inst_load,
+                                    getattr(self.pipeline, "fault", None), t0)
             if pending is not None:
                 self._drain(pending)
         except BaseException as e:

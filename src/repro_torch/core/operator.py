@@ -12,6 +12,12 @@ and one scalar ``next_l``, the earliest non-expired window index.
 ``zeta`` is a dict of tensors with leading dims ``[K, slots]``.
 ``init_zeta(device)`` builds it on a device.
 
+Two marks on the functions, set by the Table-1 defaults, let the general
+tick's bounded expiry skip rounds whatever the state (``_skippable``):
+``f_s.purge`` (f_S only drops entries left of its bound, so two purges
+equal the later one) and ``f_o.silent`` (f_O emits nothing).  No other
+mark is read; an unmarked f_S is checked on the data instead.
+
 ``tick_instances`` is the general tick: Alg. 2 one ready tuple at a
 time, for every VSN or SN instance in one pass (a leading ``[n]`` axis on
 ``resp``, the state and the outputs, the reference's ``vmap`` of its
@@ -21,9 +27,8 @@ prefix maxima over the sorted batch, and the expiry's ``while`` is
 bounded (``_plan``: one masked round a slot, and under WT=single a second
 pass for each slot's last due round; where that bound cannot be shown
 exact a device flag makes the caller raise ``ExpiryBoundError``).  User
-functions marked ``rowwise`` run once on all rows; others run under
-``torch.func.vmap`` on one slot, as the reference calls them.  ``tick``
-is its one-instance form.  ``expire_closed`` is the whole-tick fast
+functions run under ``torch.func.vmap``, each call seeing one slot, as the
+reference calls them.  ``tick`` is its one-instance form.  ``expire_closed`` is the whole-tick fast
 paths' expiry (one vectorised pass over the slot ring), and ``compact``
 writes their emitted rows into a fixed-size output buffer.
 
@@ -149,8 +154,6 @@ def default_f_u(zeta_s, tup: Tup, win_l, mask):
             torch.zeros((k,), dtype=torch.bool, device=slot.device))
 
 
-default_f_u.rowwise = True
-
 
 def default_f_o(zeta_s, win_l, key_ids):
     """Return no phi (Table 1)."""
@@ -161,7 +164,7 @@ def default_f_o(zeta_s, win_l, key_ids):
             torch.zeros((k,), dtype=torch.bool, device=key_ids.device))
 
 
-default_f_o.rowwise = default_f_o.silent = True
+default_f_o.silent = True
 
 
 def default_f_s(ws: int):
@@ -171,7 +174,7 @@ def default_f_s(ws: int):
         zeta["tau"] = torch.where(zeta_s["tau"] < new_left, -1, zeta_s["tau"])
         live = (zeta["tau"] >= 0).sum(dim=-1)
         return zeta, live > 0
-    f_s.rowwise = f_s.purge = True
+    f_s.purge = True
     return f_s
 
 
@@ -324,9 +327,9 @@ def expire_closed(op: OperatorDef, st: OpState, w, resp: torch.Tensor,
 
 class ExpiryBoundError(RuntimeError):
     """A bounded expiry could not be shown to equal the round-by-round
-    loop: under WT=single a slot stayed occupied after its first closing
-    round while more than two rounds were due on it, and the operator's
-    functions do not say that the rounds between may be skipped."""
+    loop: under WT=single more than two rounds were due on a slot, and
+    after its first one the slot held an occupied key or f_S still changed
+    its state (see ``_expire``)."""
 
 
 _FAULTS = threading.local()
@@ -356,9 +359,9 @@ def raise_on_fault(fault) -> None:
     if fault is not None and bool(fault):
         raise ExpiryBoundError(
             "the general tick's expiry closed more than two window "
-            "generations on a slot that f_S kept occupied; its bounded form "
-            "cannot show the rounds between to be empty (mark f_S "
-            "'clears_slot', or 'purge' with a 'silent' f_O, where they are)")
+            "generations on a slot that f_S kept occupied or kept "
+            "changing; its bounded form cannot show the rounds between to "
+            "be empty")
 
 
 def _report(fault) -> None:
@@ -388,35 +391,6 @@ def _bcast(m: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return m.reshape(m.shape + (1,) * (a.ndim - m.ndim))
 
 
-def _call(fn, k: int, zeta: dict, *args):
-    """A user function on ``m`` slot views ``zeta`` (leaves ``[m, K,
-    ...]``).  Each argument is ``(kind, value)``: ``"scalar"`` one value a
-    view (``[m]``), ``"keys"`` one a view and key (``[m, K]``), ``"ids"``
-    the key ids (``[K]``, the same for every view), ``"const"`` passed as
-    is.  A function marked ``rowwise`` runs once on the ``[m * K, ...]``
-    rows, with its scalars as a ``[m * K, 1]`` column; any other runs
-    under ``torch.func.vmap``, seeing one slot as the reference calls
-    it.  Results come back ``[m, K, ...]``."""
-    m = next(iter(zeta.values())).shape[0]
-    if getattr(fn, "rowwise", False):
-        flat = {n: a.reshape((m * k,) + a.shape[2:]) for n, a in zeta.items()}
-        conv = {"scalar": lambda v: v.repeat_interleave(k)[:, None],
-                "keys": lambda v: v.reshape(-1),
-                "ids": lambda v: v.repeat(m), "const": lambda v: v}
-        out = fn(flat, *(conv[kind](v) for kind, v in args))
-        return tuple(
-            {n: a.reshape((m, k) + a.shape[1:]) for n, a in o.items()}
-            if isinstance(o, dict) else o.reshape((m, k) + o.shape[1:])
-            for o in out)
-    batched = [v for kind, v in args if kind in ("scalar", "keys")]
-
-    def one(z, *vals):
-        it = iter(vals)
-        return fn(z, *(next(it) if kind in ("scalar", "keys") else v
-                       for kind, v in args))
-    return torch.func.vmap(one)(zeta, *batched)
-
-
 def _flat2(zeta: dict) -> dict:
     """``[n, D, K, ...]`` views as ``[n * D, K, ...]``."""
     return {nm: a.reshape((-1,) + a.shape[2:]) for nm, a in zeta.items()}
@@ -425,41 +399,49 @@ def _flat2(zeta: dict) -> dict:
 def _rounds(op: OperatorDef, z, occ, gen, act, resp, key_ids, fresh):
     """Closing rounds (forwardAndShift, Alg. 2 L12-18) of the generations
     ``gen`` (i32 ``[n, D]``, distinct slots in a row) where ``act``; ``z``,
-    ``occ`` and ``fresh`` are slot-major.  Returns the new ``z``, ``occ``
-    and the rows emitted, round by round: ``payload [n, D * K, P]`` and
-    ``valid [n, D * K]`` (their taus are ``right_of(gen)``)."""
+    ``occ`` and ``fresh`` are slot-major.  Returns the new ``z``, ``occ``,
+    the rows emitted, round by round: ``payload [n, D * K, P]`` and
+    ``valid [n, D * K]`` (their taus are ``right_of(gen)``), and under
+    WT=single ``same`` (bool ``[n, D]``: f_S returned the slot's state as
+    it was; None under WT=multi)."""
     ws = op.window
     n, d = gen.shape
     k = key_ids.shape[0]
     s = (gen % op.slots).long()
     zd = {name: _take(a, s) for name, a in z.items()}
     occ_d = _take(occ, s)
-    payload, f_valid = _call(op.f_o, k, _flat2(zd),
-                             ("scalar", gen.reshape(-1)), ("ids", key_ids))
+    payload, f_valid = torch.func.vmap(lambda zs, l: op.f_o(zs, l, key_ids))(
+        _flat2(zd), gen.reshape(-1))
     valid = (f_valid.reshape(n, d, k) & occ_d & resp[:, None, :]
              & act[..., None])
     if ws.wt == SINGLE:
-        new, still = _call(op.f_s, k, _flat2(zd),
-                           ("scalar", ws.left_of(gen + 1).reshape(-1)))
+        new, still = torch.func.vmap(op.f_s)(
+            _flat2(zd), ws.left_of(gen + 1).reshape(-1))
         z = {nm: _give(a, s, torch.where(
             _bcast(act, zd[nm]), new[nm].reshape(zd[nm].shape), zd[nm]))
             for nm, a in z.items()}
         occ = _give(occ, s, torch.where(
             act[..., None], still.reshape(n, d, k) & occ_d, occ_d))
+        same = torch.stack([
+            (new[nm].reshape(zd[nm].shape) == zd[nm]).reshape(n, d, -1)
+            .all(-1) for nm in zd]).all(0)
     else:
+        same = None
         z = {nm: _give(a, s, torch.where(_bcast(act, zd[nm]), fresh[nm][s],
                                          zd[nm]))
              for nm, a in z.items()}
         occ = _give(occ, s, occ_d & ~act[..., None])
-    return z, occ, payload.reshape(n, d * k, -1), valid.reshape(n, d * k)
+    return (z, occ, payload.reshape(n, d * k, -1), valid.reshape(n, d * k),
+            same)
 
 
 def _skippable(op: OperatorDef) -> bool:
     """The rounds between a slot's first and last closing round change
-    nothing the last one does not: f_S empties the slot, or purges by its
-    left bound (purges compose to the last) while f_O emits nothing."""
+    nothing the last one does not, whatever the state: WT=multi recycles
+    the slot, or f_S purges by its left bound (purges compose to the last)
+    while f_O emits nothing (the module's ``purge`` and ``silent``
+    marks)."""
     return (op.window.wt == MULTI
-            or getattr(op.f_s, "clears_slot", False)
             or (getattr(op.f_s, "purge", False)
                 and getattr(op.f_o, "silent", False)))
 
@@ -471,11 +453,10 @@ def _plan(op: OperatorDef, m, c):
     round on a slot finds it emptied under WT=multi.  Under WT=single
     ``f_S`` may keep it occupied, so a second pass runs each slot's last
     due round; the rounds between are skipped, which is exact where
-    ``_skippable`` says so and is otherwise flagged where the slot stayed
-    occupied.  Returns
-    the passes ``[(gen, act)]`` (``[..., slots]`` each, rounds in order)
-    and ``skips`` (``[..., slots]``: the second pass's slots whose rounds
-    between it and the first may hold something, or None)."""
+    ``_skippable`` says so and otherwise checked on the data (``_expire``).
+    Returns the passes ``[(gen, act)]`` (``[..., slots]`` each, rounds in
+    order) and ``skips`` (``[..., slots]``: the second pass's slots with
+    rounds skipped before it, or None where none can matter)."""
     n_s = op.slots
     d = torch.arange(n_s, dtype=torch.int32, device=m.device)
     passes = [(m[..., None] + d, d < c[..., None])]
@@ -492,14 +473,24 @@ def _expire(op: OperatorDef, z, occ, passes, skips, resp, key_ids, fresh):
     """Run ``_plan``'s passes (``[n, slots]`` each) on slot-major state.
     Returns ``(z, occ, rows, fault)``: ``rows`` a ``(payload, valid)`` a
     pass, ``fault`` a device bool (or None) that a skipped round may have
-    mattered."""
+    mattered.
+
+    A slot's skipped rounds are empty where, after its first round, no key
+    of the slot is occupied (nothing emits, and occupancy stays false) and
+    f_S, which the last round applies at its left bound, returns the
+    slot's state as it was: the skipped rounds then apply f_S to that same
+    state.  That f_S, the same at the earlier bounds, leaves it so too is
+    taken as given: true of an f_S that ignores the bound (one that clears
+    the slot) and of a purge by it.  Anywhere else the fault is set."""
     rows, fault = [], None
     for i, (gen, act) in enumerate(passes):
+        kept = None
         if i and skips is not None:
             kept = _take(occ.any(dim=-1), (gen % op.slots).long())
-            fault = (skips & kept).any()
-        z, occ, payload, valid = _rounds(op, z, occ, gen, act, resp, key_ids,
-                                         fresh)
+        z, occ, payload, valid, same = _rounds(op, z, occ, gen, act, resp,
+                                               key_ids, fresh)
+        if kept is not None:
+            fault = (skips & (kept | ~same)).any()
         rows.append((payload, valid))
     return z, occ, rows, fault
 
@@ -653,10 +644,10 @@ def tick_instances(op: OperatorDef, st: OpState, ready: T.TupleBatch,
             occ_u = _take(occ, s)
             tup = Tup(tau=tau[lane], payload=ready.payload[lane],
                       source=ready.source[lane], keys=ready.keys[lane])
-            new, payload, f_valid = _call(
-                op.f_u, k, _flat2(zu), ("const", tup),
-                ("scalar", l_u[:, lane].reshape(-1)),
-                ("keys", mask.reshape(n * n_upd, k)))
+            new, payload, f_valid = torch.func.vmap(
+                lambda zs, l, mk: op.f_u(zs, tup, l, mk))(
+                _flat2(zu), l_u[:, lane].reshape(-1),
+                mask.reshape(n * n_upd, k))
             z = {nm: _give(a, s, torch.where(
                 _bcast(mask, zu[nm]), new[nm].reshape(zu[nm].shape), zu[nm]))
                 for nm, a in z.items()}

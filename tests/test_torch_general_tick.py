@@ -14,8 +14,9 @@ that the port calls under ``torch.func.vmap`` (they read their window
 index as a scalar), ScaleJoin (lazy, a user ``f_U``), multi-key tuples,
 first contact from ``UNSET_L`` and the explicit end-of-tick watermark;
 the state handed to a tick is left as it was.
-One case must raise: a user ``f_S`` under WT=single that keeps a slot
-occupied while more than two rounds close on it."""
+Two cases must raise, each a user ``f_S`` under WT=single with more than
+two rounds closing on a slot: one keeps the slot occupied, the other
+empties it but goes on halving its sums (which a later ``f_U`` reads)."""
 
 import dataclasses
 
@@ -45,11 +46,12 @@ K, KMAX, B, P = 6, 2, 7, 2
 
 
 # ------------------------------------------------ user functions, twice --
-def _user(xp, keep):
+def _user(xp, mode):
     """A sum aggregate written for one slot (its window index is a scalar
     it computes with), in ``xp`` = jnp or torch.  ``f_U`` emits a key's
-    running sum on its second tuple; ``f_S`` clears the slot or, ``keep``,
-    halves the sums and keeps every counted key occupied."""
+    running sum on its second tuple; ``f_S`` clears the slot (``clear``),
+    halves the sums and keeps every counted key occupied (``keep``), or
+    halves the sums and marks no key occupied (``decay``)."""
     where = xp.where
 
     def f_u(z, tup, l, mask):
@@ -72,17 +74,19 @@ def _user(xp, keep):
         return pay, z["n"] > 0
 
     def f_s(z, new_left):
-        if keep:
+        if mode == "keep":
             return {"acc": z["acc"] * 0.5, "n": z["n"]}, z["n"] > 0
+        if mode == "decay":
+            return {"acc": z["acc"] * 0.5, "n": z["n"]}, z["n"] > 100
         return ({"acc": z["acc"] * 0, "n": z["n"] * 0},
                 where(z["n"] > 100, True, False))
     return f_u, f_o, f_s
 
 
-def _user_ops(spec, keep):
+def _user_ops(spec, mode):
     slots = (spec["ws"] // spec["wa"] if spec["wt"] == "multi" else 1) + 1
-    jfu, jfo, jfs = _user(jnp, keep)
-    pfu, pfo, pfs = _user(torch, keep)
+    jfu, jfo, jfs = _user(jnp, mode)
+    pfu, pfo, pfs = _user(torch, mode)
     jop = JOP.OperatorDef(
         window=JWS(**spec), n_inputs=1, k_virt=K, payload_out=P,
         init_zeta=lambda: {"acc": jnp.zeros((K, slots, 1), jnp.float32),
@@ -130,7 +134,7 @@ def _ops(name, wt, lazy):
                                payload_width=1, ring=3, out_cap=24)
         return jop.resolved(), pop.resolved()
     else:
-        jop, pop = _user_ops(spec, keep=name == "user_keep")
+        jop, pop = _user_ops(spec, name.removeprefix("user_"))
     jop = dataclasses.replace(jop, lazy_expiry=lazy).resolved()
     pop = dataclasses.replace(pop, lazy_expiry=lazy).resolved()
     return jop, pop
@@ -184,6 +188,8 @@ CASES = [
     ("user_keep", "single", False, False, False),
     ("scalejoin", "single", True, False, False),
     ("user_keep", "single", False, False, True),
+    ("user_decay", "single", False, False, False),
+    ("user_decay", "single", False, False, True),
 ]
 
 
@@ -196,9 +202,9 @@ def test_general_tick_equals_reference_and_oracle(name, wt, lazy, explicit,
                                                   raises):
     jop, pop = _ops(name, wt, lazy)
     s = pop.slots
-    # a user f_S that keeps its slot occupied is exact up to two rounds a
-    # slot, and flagged past them
-    gaps = ([0, 1, 2, s, 3 * s + 1] if name != "user_keep"
+    # a user f_S that keeps its slot occupied or changing is exact up to
+    # two rounds a slot, and flagged past them
+    gaps = ([0, 1, 2, s, 3 * s + 1] if name not in ("user_keep", "user_decay")
             else [0, 1, 2, s, 2 * s])
     if raises:
         gaps = [0, 3 * s + 1]
@@ -257,3 +263,34 @@ def _flag_in_a_pipeline(pop, batches):
                        device="cpu")
     for b in batches:
         pipe.step(to_port(b))
+
+
+@pytest.mark.parametrize("every", [0, 1], ids=["no-checkpoint",
+                                               "checkpoint-every-tick"])
+def test_a_flagged_tick_reaches_neither_sink_nor_checkpoint(tmp_path, every):
+    """The live runtime reads a tick's expiry flag before its outputs go
+    to the sink and before the state after it is saved: with the flag set
+    at tick 1, the sink holds tick 0's outputs alone and the last
+    checkpoint is the boundary before tick 1."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.checkpoint.stream import StreamCheckpointer
+    from repro_torch.core.async_runtime import AsyncStreamRuntime
+    from repro_torch.core.runtime import VSNPipeline
+    from repro_torch.io.sinks import CollectSink
+    from repro_torch.io.sources import ReplaySource
+    _, pop = _ops("user_keep", "single", False)
+    s = pop.slots
+    batches = [to_port(b) for b in _stream(7, pop.window.wa,
+                                           [0, 3 * s + 1, 0], P)]
+    pipe = VSNPipeline(pop, n_max=3, n_active=2, stash_cap=2 * B,
+                       device="cpu")
+    sck = (StreamCheckpointer(Checkpointer(str(tmp_path)), every, pipe)
+           if every else None)
+    sink = CollectSink()
+    rt = AsyncStreamRuntime(pipe, ReplaySource(batches), sink=sink,
+                            checkpointer=sck)
+    with pytest.raises(POP.ExpiryBoundError):
+        rt.run()
+    assert [t for t, _, _ in sink._held] == [0]
+    if every:
+        assert sck.saved_steps == [1]

@@ -15,10 +15,13 @@ float32 where PyTorch rounds each operation, so the two differ by a few
 bfloat16 ulps (measured up to 1.3e-2).  The MoE archs' ``vsn`` dispatch
 rounds its expert sum to bfloat16 even in float32 (the reference's
 cross-shard sum dtype), so a float32 rounding difference upstream now and
-then moves one MoE output by a bfloat16 ulp: their float32 logits and
-caches agree within ``MOE_F32_ATOL``, one bfloat16 ulp at 1.0 (measured up
-to 1.2e-4 on the logits and 6.5e-4 on the keys after a prefill), with
-equal greedy tokens; ``moe_forward`` alone agrees within 1e-5."""
+then moves one MoE output by a bfloat16 ulp: their float32 logits agree
+within ``MOE_F32_LOGITS_ATOL`` and their caches within
+``MOE_F32_CACHE_ATOL`` (measured up to 1.2e-4 on the logits and 6.5e-4 on
+the keys after a prefill), with equal greedy tokens; ``moe_forward`` alone
+agrees within 1e-5.  A port that left the bfloat16 rounding out differs
+by 3.8e-4 to 9.1e-4 on every logits case and 3.6e-3 to 5.7e-3 on the
+caches, past both limits."""
 
 import dataclasses
 import functools
@@ -39,7 +42,8 @@ from repro_torch.models import transformer as PT
 ARCHS = ["qwen3-14b", "rwkv6-7b", "gemma3-4b", "deepseek-moe-16b",
          "qwen3-moe-30b-a3b"]
 BF16_ATOL = 4e-2
-MOE_F32_ATOL = 2.0 ** -8
+MOE_F32_LOGITS_ATOL = 3e-4
+MOE_F32_CACHE_ATOL = 1.5e-3
 S, MAX_SEQ, N_DECODE = 12, 24, 4
 
 
@@ -75,7 +79,7 @@ def _logits_close(want, got, dtype, kind="dense"):
     got = got.float().numpy()
     if dtype == "float32":
         np.testing.assert_allclose(
-            got, want, atol=MOE_F32_ATOL if kind == "moe" else 1e-4)
+            got, want, atol=MOE_F32_LOGITS_ATOL if kind == "moe" else 1e-4)
         np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
     else:
         np.testing.assert_allclose(got, want, atol=BF16_ATOL)
@@ -167,7 +171,7 @@ def test_prefill_and_decode_match_reference(pair):
         for name in (ref_tree or {}):
             np.testing.assert_allclose(
                 port_tree[name].numpy(), np.asarray(ref_tree[name]),
-                atol=MOE_F32_ATOL if cfg.kind == "moe" else 1e-4,
+                atol=MOE_F32_CACHE_ATOL if cfg.kind == "moe" else 1e-4,
                 err_msg=name)
 
 
