@@ -26,9 +26,10 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
                  window_join at the Q3 and bench shapes, n_attrs 12,
                  524,289 key rows and ``join_edge_cases``;
                  flash_attention at 65,544 (lane, KV head) pairs; the
-                 two model kernels at their decode and prefill shapes
-                 (linear_scan also at T 1024, strong and zero decays, the
-                 chunk's edges, and a sweep over the chunk length).
+                 two model kernels at their decode and prefill shapes,
+                 hymba-1.5b's among them (linear_scan also at T 1024,
+                 strong and zero decays, the chunk's edges, and a sweep
+                 over the chunk length).
 3. ``q1_wordcount`` — the Q1 wordcount VSN pipeline with a mid-stream
                  reconfiguration (4 -> 16 instances), equal to the same run
                  on the CPU (outputs, switch flags, instance loads), with 0
@@ -88,22 +89,29 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
                  --resume``, each a process of its own on the card, and
                  the same ``live`` run on the CPU with an equal output
                  count.
-10-12. ``serve_qwen3_14b``, ``serve_rwkv6_7b``, ``serve_deepseek_moe_16b``
+10-13. ``serve_qwen3_14b``, ``serve_rwkv6_7b``, ``serve_deepseek_moe_16b``
                  (the MoE's one-shard ``vsn`` dispatch, each decode lane
                  routed alone; its dropped tokens counted, none in
-                 decode) — each model at its published
+                 decode), ``serve_hymba_1_5b`` (attention and SSM heads
+                 side by side: flash_attention at D 64, n_rep 5, and
+                 linear_scan at Dk 16) — each model at its published
                  width and depth in bfloat16 (random parameters drawn on the
                  card), one after the other, through ``build_runtime`` ->
                  ``AsyncStreamRuntime`` -> ``ServingPipeline`` ->
-                 ``ServingEngine`` with the SLO controller: every request
-                 served, first tokens equal to ``reference_decode``, one
-                 kernel launch per layer per forward, a mid-decode VSN
-                 switch moving 0 bytes and an SN switch moving more, both
-                 token-invisible, and a float32 copy cut to 4 layers
-                 token-identical to ``reference_decode`` (see
-                 ``serve_full_width``).
+                 ``ServingEngine`` with the SLO controller, the engine
+                 replaying one CUDA graph per decode bucket and prompt
+                 length: every request served, first tokens equal to
+                 ``reference_decode``, each model kernel launched once per
+                 layer per forward and per graph, the eager engine
+                 (``graphs=False``) handed the same requests at the same
+                 rounds giving the same tokens (decode and prefill
+                 latency and a profiled round, graph against eager), a
+                 mid-decode VSN switch moving 0 bytes and an SN switch
+                 moving more, both token-invisible, and a float32 copy
+                 cut to 4 layers token-identical to ``reference_decode``
+                 (see ``serve_full_width``).
 
-Phases 3 to 12 are the main path: each zeroes the launch counts right
+Phases 3 to 13 are the main path: each zeroes the launch counts right
 before its card run and reads them right after (``launchers`` reads each
 of its processes' counts), and the ``{"kernels": [...]}`` line reports
 their sum with phase 2's times.  Each phase's line holds its
@@ -1008,6 +1016,16 @@ def check_flash_attention(dev):
         compare(f"deepseek_prefill_{tag}",
                 rnd(1, 128, 16, 128, dtype=dt).transpose(1, 2), *ds_pool,
                 q_offset=ints([0]), kv_index=ints([6]))
+        # hymba-1.5b: 25 query heads over 5 KV heads of 64 (n_rep 5); a
+        # decode round over its 9-row pool (8 slots and the pad lanes'
+        # scratch row, which the pad lanes read) and a prefill into a slot
+        hy_pool = [cache(9, 1024, 5, 64, dt) for _ in range(2)]
+        compare(f"hymba_decode_{tag}", decode_q(8, 25, 64, dt), *hy_pool,
+                n_rep=5, q_offset=ints([144, 0, 31, 32, 1023, 0, 159, 7]),
+                kv_index=ints([3, 0, 7, 6, 1, 8, 2, 4]))
+        compare(f"hymba_prefill_{tag}",
+                rnd(1, 128, 25, 64, dtype=dt).transpose(1, 2), *hy_pool,
+                n_rep=5, q_offset=ints([0]), kv_index=ints([5]))
     compare("tpu_signature_f32", rnd(4, 128, 128), rnd(4, 128, 128),
             rnd(4, 128, 128))
     # bfloat16 only: the split-KV decode's chunk edges over a permuted pool
@@ -1052,15 +1070,15 @@ def check_flash_attention(dev):
                 q_offset=depth)
         del q, kc, vc
 
-    def timed(b, sq, at, hq=40, hkv=8):
+    def timed(b, sq, at, hq=40, hkv=8, d=128):
         """bf16 kernel, plain version, SDPA and bound for ``b`` lanes of
         ``sq`` queries (qwen3-14b's 40 heads over 8 by default, D 128) at
         depth ``at`` of a 1024-slot cache, q_offset per lane as the model
         passes it; SDPA gets the visible keys with the KV heads repeated
         (outside the timing) and is_causal for the prefill."""
         rep = hq // hkv
-        q = rnd(b, sq, hq, 128, dtype=bf16).transpose(1, 2)
-        kc, vc = (cache(b, 1024, hkv, 128, bf16) for _ in range(2))
+        q = rnd(b, sq, hq, d, dtype=bf16).transpose(1, 2)
+        kc, vc = (cache(b, 1024, hkv, d, bf16) for _ in range(2))
         off = ints(np.full(b, at))
         run = lambda f: f(q, kc, vc, n_rep=rep, q_offset=off)
         n_vis = at + sq
@@ -1068,12 +1086,12 @@ def check_flash_attention(dev):
                   for x in (kc, vc))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         visible = b * hq * (sq * at + sq * (sq + 1) // 2)  # (query, key)
-        ms, by = bound(2 * (2 * b * hq * sq * 128)          # q in, out
-                       + 2 * (2 * b * hkv * n_vis * 128)    # visible K, V
-                       + 4 * b, bf16_ops=4 * visible * 128)
+        ms, by = bound(2 * (2 * b * hq * sq * d)            # q in, out
+                       + 2 * (2 * b * hkv * n_vis * d)      # visible K, V
+                       + 4 * b, bf16_ops=4 * visible * d)
         return dict(
-            shape=f"q [{b}, {hq}, {sq}, 128] bf16 at depth {at} of a "
-                  f"[{b}, 1024, {hkv}, 128] cache, n_rep {rep}",
+            shape=f"q [{b}, {hq}, {sq}, {d}] bf16 at depth {at} of a "
+                  f"[{b}, 1024, {hkv}, {d}] cache, n_rep {rep}",
             **timings(lambda: run(flash_attention_op),
                       lambda: run(flash_attention_plain),
                       lambda: sdpa(q, ke, ve, is_causal=at == 0)),
@@ -1114,6 +1132,8 @@ def check_flash_attention(dev):
                 **timed(8, 1, 144), prefill=timed(1, 128, 0),
                 deepseek=dict(decode=timed(8, 1, 144, 16, 16),
                               prefill=timed(1, 128, 0, 16, 16)),
+                hymba=dict(decode=timed(8, 1, 144, 25, 5, 64),
+                           prefill=timed(1, 128, 0, 25, 5, 64)),
                 decode_split_ms=sweep)
 
 
@@ -1142,7 +1162,7 @@ def scan_timed(a):
     # r, k, w, v in; o out; S_T out (and s0 in when given); u in
     n_bytes = 4 * (3 * bh * t * dk + 2 * bh * t * dv + bh * dk * dv
                    + (bh * dk * dv if a["s0"] is not None else 0)
-                   + a["u"].numel())
+                   + (a["u"].numel() if a["u"] is not None else 0))
     # per step and (i, j): w s, k v, + (the update) and r s, + (the
     # output); the bonus diag(u) k^T v has rank 1, so per step it is
     # a = sum_i r_i u_i k_i (3 per i) and y_j += a v_j (2 per j)
@@ -1150,8 +1170,8 @@ def scan_timed(a):
     if a["u"] is not None:
         fp_ops += bh * t * (3 * dk + 2 * dv)
     ms, by = bound(n_bytes, fp_ops=fp_ops)
-    return dict(shape=f"BH {bh}, T {t}, Dk {dk}, Dv {dv}, u, "
-                      f"s0 {a['s0'] is not None}",
+    return dict(shape=f"BH {bh}, T {t}, Dk {dk}, Dv {dv}, "
+                      f"u {a['u'] is not None}, s0 {a['s0'] is not None}",
                 **timings(lambda: scan_call(linear_scan_op, a),
                           lambda: scan_call(linear_scan_ref, a),
                           plain_reps=20 if t <= 128 else 3),
@@ -1163,6 +1183,15 @@ def scan_timed(a):
 # prefill as deep as the serve configs' slots (1024)
 SCAN_TIMED = {"decode": (512, 1, True), "prefill": (64, 128, False),
               "prefill_t1024": (64, 1024, False)}
+
+
+def ssm_scan_inputs(dev, gen, bh, t):
+    """hymba-1.5b's SSM call (``models/ssm.py``): r = C, k = B (Dk 16),
+    v = x (Dv 64), one decay a head and step broadcast over Dk, from a
+    carried state, no u."""
+    w = 0.5 + 0.49 * torch.rand((bh, t, 1), generator=gen, device=dev)
+    return scan_inputs(dev, gen, bh, t, 16, 64, s0=True,
+                       w=w.expand(bh, t, 16).contiguous())
 
 
 def scan_timed_rows(dev):
@@ -1317,7 +1346,11 @@ def check_linear_scan(dev):
                                         w=mixed(16, 53, 64)),
              "ragged_t130_dv40_dk128": inputs(4, 130, 128, 40, u_rows=2,
                                               s0=True),
-             "t1024": inputs(64, 1024, 64, 64, u_rows=64, s0=True)}
+             "t1024": inputs(64, 1024, 64, 64, u_rows=64, s0=True),
+             # hymba-1.5b's SSM: 8 lanes x 25 heads, Dk 16, Dv 64
+             "hymba_decode": ssm_scan_inputs(dev, gen, 200, 1),
+             "hymba_prefill": ssm_scan_inputs(dev, gen, 25, 128),
+             "hymba_prefill_t130": ssm_scan_inputs(dev, gen, 25, 130)}
     for t in (CHUNK - 1, CHUNK, CHUNK + 1):
         cases[f"t{t}_mixed_decays"] = inputs(64, t, 64, 64, u_rows=64,
                                              s0=True, w=mixed(64, t, 64))
@@ -1346,6 +1379,8 @@ def check_linear_scan(dev):
                 max_abs_err=max(errs.values()), errors=errs,
                 **rows["decode"], prefill=rows["prefill"],
                 prefill_t1024=rows["prefill_t1024"],
+                hymba=dict(decode=scan_timed(cases["hymba_decode"]),
+                           prefill=scan_timed(cases["hymba_prefill"])),
                 chunk_sweep_ms=sweep)
 
 
@@ -2540,14 +2575,83 @@ def launchers(dev, drills="straggler,live,ingest,serving,crash,recovery,"
 
 
 # ---------------------------------------------------------------------------
-# phases 10-11: the elastic serving tier at full width (qwen3-14b, rwkv6-7b)
+# phases 10-13: the elastic serving tier at full width (qwen3-14b,
+# rwkv6-7b, deepseek-moe-16b, hymba-1.5b)
 # ---------------------------------------------------------------------------
 
-SERVE_KERNEL = {"dense": "flash_attention", "moe": "flash_attention",
-                "rwkv": "linear_scan"}
+SERVE_KERNELS = {"dense": ("flash_attention",), "moe": ("flash_attention",),
+                 "rwkv": ("linear_scan",),
+                 "hybrid": ("flash_attention", "linear_scan")}
 # a substring of the CUDA kernels' symbols, for the profile
-SERVE_KERNEL_SYMBOL = {"dense": "flash_", "moe": "flash_",
-                       "rwkv": "linear_scan_"}
+KERNEL_SYMBOL = {"flash_attention": "flash_", "linear_scan": "linear_scan_"}
+
+
+# The float32 MoE copy's batch-1 allowance (see ``serve_full_width``): a
+# request may leave batch-1 decode only at a token whose top-2 logit gap in
+# the reference is below this (the card read one at 2.66e-4, PERF.md)
+MOE_BATCH1_GAP = 1e-3
+
+
+def record_buckets(eng) -> dict:
+    """Wrap ``eng._run`` (undone by ``del eng._run``) to record each
+    request's decode rounds' buckets: -> {uid: [bucket a decode step]},
+    filled as the engine runs."""
+    rows = {}
+    run = eng._run
+
+    def record(key, body):
+        if key[0] == "decode":
+            for r in eng.running.values():
+                rows.setdefault(r.uid, []).append(key[1])
+        run(key, body)
+    eng._run = record
+    return rows
+
+
+def padded_decode(cfg, params, prompt, max_new, max_seq, rows=None):
+    """The port's ``reference_decode`` (greedy, fresh caches, one bulk
+    prefill, then token by token), each token with its top-2 logit gap.
+    With ``rows`` (an int a decode step), step j runs as a batch of
+    ``rows[j]`` lanes, as the engine's round padded to its bucket: the
+    request in lane 0, the others pad lanes (token 0, position 0, not
+    live) on cache rows of their own.  No lane reads another, so the
+    tokens are the same function at the engine's matrix shapes, and the
+    card's libraries round a row alike only at equal shapes: where the
+    engine leaves batch-1 decode, this tells that rounding from a lane
+    leaking into another.  -> (tokens, gaps)."""
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer
+    dev = params["embedding"].device
+    width = 1 if rows is None else max(rows, default=1)
+    caches, states = transformer.init_caches(cfg, width, max_seq, dev)
+    toks = torch.as_tensor(np.asarray(prompt, np.int64)[None], device=dev)
+    lane0 = None if rows is None else torch.zeros((1,), dtype=torch.int64,
+                                                  device=dev)
+    logits, caches, states = M.prefill_with_cache(params, toks, caches,
+                                                  states, cfg=cfg,
+                                                  lanes=lane0)
+    out, gaps = [], []
+
+    def take(row):
+        top = row.float().topk(2).values
+        out.append(int(row.argmax()))
+        gaps.append(float(top[0] - top[1]))
+    take(logits[0])
+    pos = len(prompt)
+    while len(out) < max_new:
+        if rows is None:
+            logits, caches, states = M.decode_step(
+                params, caches, states,
+                torch.tensor([out[-1]], device=dev), pos, cfg=cfg)
+        else:
+            k = rows[len(out) - 1]
+            one = lambda v: torch.tensor([v] + [0] * (k - 1), device=dev)
+            logits, caches, states = M.decode_step(
+                params, caches, states, one(out[-1]), one(pos), cfg=cfg,
+                lanes=torch.arange(k, device=dev), live=one(1) != 0)
+        take(logits[0])
+        pos += 1
+    return out, gaps
 
 
 def _engine_tokens(eng, prompts, max_new, at=None, mode="vsn",
@@ -2573,27 +2677,112 @@ def _engine_tokens(eng, prompts, max_new, at=None, mode="vsn",
     return {r.uid: list(r.out) for r in done}, moved
 
 
+def _replay(eng, schedule, rounds=None):
+    """Submit ``schedule``'s requests ((round, uid, prompt, max_new), the
+    rounds counted from the engine's first) to ``eng`` at their rounds,
+    as the runtime did, and tick; stop after ``rounds`` rounds (None: once
+    every request is done).  The engine then batches the same lanes at
+    the same rounds.  -> ({uid: tokens so far}, the rounds' span
+    quantiles (``serve.decode``, ``serve.prefill``))."""
+    from repro_torch import obs as _obs
+    from repro_torch.obs import ObsConfig
+    from repro_torch.serving import Request
+    by_round = {}
+    for step, uid, prompt, max_new in schedule:
+        by_round.setdefault(step, []).append(
+            Request(uid=uid, prompt=prompt, max_new=max_new))
+    reqs = [r for rs in by_round.values() for r in rs]
+    prev = _obs.get()
+    o = _obs.install(ObsConfig(enabled=True, trace=True))
+    try:
+        while rounds is None or eng.steps < rounds:
+            for r in by_round.get(eng.steps, []):
+                eng.submit(r)
+            eng.tick()
+            if (eng.steps > max(by_round) and not eng.running
+                    and not eng.waiting):
+                break
+        lat = o.tracer.stage_latency_ms()
+    finally:
+        _obs.set_current(prev)
+    return {r.uid: list(r.out) for r in reqs if r.out}, lat
+
+
+def _graph_summary(eng, kernels, n_layers) -> dict:
+    """The engine's captured graphs (bucket or prompt length -> capture
+    and instantiate seconds, nodes, kernel launches a replay, replays);
+    each replays every layer's kernels once and copies nothing to or from
+    host memory."""
+    out = {}
+    for key, g in eng.graph_stats().items():
+        nodes = g["nodes"] or {}
+        assert all(g["launches"].get(k) == n_layers for k in kernels), \
+            (key, g["launches"])
+        assert nodes.get("host_copies", 0) == 0, (key, nodes)
+        out[key] = dict(capture_s=g["capture_s"],
+                        instantiate_s=g["instantiate_s"],
+                        nodes=nodes.get("nodes"),
+                        by_type=nodes.get("by_type"),
+                        launches=g["launches"], replays=g["replays"])
+    return out
+
+
+def _round_profile(eng, prompts, kernels):
+    """Where a decode round's time goes: ``prompts`` (one a slot) admitted
+    and one round run, then 4 rounds under the profiler; the engine is
+    drained after."""
+    from repro_torch.serving import Request
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=1000 + i, prompt=p, max_new=8))
+    eng.tick()                                     # admit all + one round
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize(eng.device)
+    profile = device_profile(lambda i: eng.tick(), 4,
+                             kernel=KERNEL_SYMBOL[kernels[0]])
+    while eng.running:
+        eng.tick()
+    return profile
+
+
+def _free_card(dev) -> None:
+    import gc
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
                      max_new=32, lanes=4, ticks=24, check_layers=4,
-                     reduced=False):
+                     reduced=False, eager_rounds=160):
     """``arch`` at its published width and depth in bfloat16, parameters
     drawn on the card from seed 0, through the serving entry points
     (``build_runtime`` over a ``RequestSource`` -> ``AsyncStreamRuntime``
-    -> ``ServingPipeline`` -> ``ServingEngine``, ``SloServingController``).
+    -> ``ServingPipeline`` -> ``ServingEngine``, ``SloServingController``),
+    the engine capturing a CUDA graph per decode bucket and prompt length.
     Traffic: 2 sources, ``lanes`` request lanes per 50 ms tick, ``ticks``
     arrival ticks at 40 requests/s with 160 in the middle third, prompts
     of ``prompt_len`` tokens, ``max_new`` tokens each, 8 slots of
     ``max_seq`` over 4 instances with 1 active at start.  Checks: every
     request served; first tokens equal the port's ``reference_decode``
     (batch 1 on both sides), and the share of equal tokens over the
-    first ``n_slots`` requests' whole outputs; the model's
-    kernel launched once per layer per forward; a mid-decode VSN switch
-    moves 0 bytes and SN more, both token-invisible; and a float32 copy
-    cut to ``check_layers`` layers (full width), serving prompts of mixed
-    lengths and budgets that arrive over several rounds, is
-    token-identical to ``reference_decode``.  The defaults are the card's
-    run; ``reduced=True`` with smaller arguments rehearses the phase on
-    the CPU (``dev="cpu"``)."""
+    first ``n_slots`` requests' whole outputs, each of those requests
+    that leaves batch-1 decode equal to ``padded_decode`` at the buckets
+    the engine ran it in (``requests_off_batch1``); the model's kernels
+    launched once per layer per forward, and once per layer in every
+    graph, which copies nothing to or from the host; the eager engine
+    (``graphs=False``), handed the same requests at the same rounds
+    (``eager_rounds``: only the first that many rounds, a request cut
+    short compared on the tokens it has), gives the same tokens; a mid-decode VSN switch moves 0 bytes and SN more, both
+    token-invisible; and a float32 copy cut to ``check_layers`` layers
+    (full width), serving prompts of mixed lengths and budgets that
+    arrive over several rounds, is token-identical to ``padded_decode``
+    at the engine's buckets and to batch-1 ``reference_decode`` (the
+    MoE: but for one request at a near tie, ``MOE_BATCH1_GAP``).
+    Reported, graph against eager: decode round
+    p50 / p99 and prefill p50 (the engine's spans), and a profiled round
+    (device operations, host syncs, busy share).  The defaults are the
+    card's run; ``reduced=True`` with smaller arguments rehearses the
+    phase on the CPU (``dev="cpu"``, both engines eager)."""
     from repro_torch import obs as _obs
     from repro_torch.api import RuntimeConfig, build_runtime
     from repro_torch.configs import canon, get_config
@@ -2610,7 +2799,7 @@ def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
     mcfg = get_config(canon(arch))
     if reduced:
         mcfg = reduce_cfg(mcfg)
-    kernel = SERVE_KERNEL[mcfg.kind]
+    kernels = SERVE_KERNELS[mcfg.kind]
     prev_obs = _obs.get()
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2637,6 +2826,13 @@ def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
     sync()
     init_s = time.perf_counter() - t0
     pipe, eng = rt.pipeline, rt.pipeline.engine
+    assert eng.graphs == cuda
+    # the rounds the requests reach the engine at, for the eager replay
+    schedule = []
+    submit = eng.submit
+    eng.submit = lambda r: (schedule.append((eng.steps, r.uid, r.prompt,
+                                             r.max_new)), submit(r))[1]
+    buckets = record_buckets(eng)
 
     # the main path: the kernel counts cover exactly this run
     dispatch.reset_launches()
@@ -2644,6 +2840,7 @@ def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
         rep = rt.run()
     finally:
         _obs.set_current(prev_obs)
+        del eng.submit, eng._run
     launches = {k: v.launches for k, v in dispatch.registered().items()}
     prefills, rounds = eng.prefills, eng.decode_rounds
     main_dropped = int(eng.dropped)
@@ -2654,29 +2851,54 @@ def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
     assert len(pipe.finished) == source.total_requests > 0, \
         (len(pipe.finished), source.total_requests)
     if cuda:
-        assert launches[kernel] == mcfg.n_layers * forwards > 0, \
-            (launches, mcfg.n_layers, forwards)
-    assert all(n == 0 for k, n in launches.items() if k != kernel), launches
+        for k in kernels:
+            assert launches[k] == mcfg.n_layers * forwards > 0, \
+                (launches, mcfg.n_layers, forwards)
+    assert all(n == 0 for k, n in launches.items() if k not in kernels), \
+        launches
     tokens = sum(len(r.out) for r in pipe.finished)
     assert tokens == source.total_requests * max_new
     for ev in pipe.reconfig_events:
         assert ev["kv_bytes_moved"] == 0, ev
+    graphs = _graph_summary(eng, kernels, mcfg.n_layers)
+    assert (len(graphs) > 0) == cuda
+
+    # the eager engine on the same requests at the same rounds: the same
+    # lanes in the same buckets, so the same tokens
+    served = {r.uid: list(r.out) for r in pipe.finished}
+    t1 = time.perf_counter()
+    eager = ServingEngine(mcfg, eng.params, n_slots=n_slots, max_seq=max_seq,
+                          n_instances=4, device=dev, graphs=False)
+    eager_out, eager_lat = _replay(eager, schedule, eager_rounds)
+    assert eager_out and all(served[uid][:len(out)] == out
+                             for uid, out in eager_out.items()), \
+        "the eager engine's tokens differ from the graph engine's"
+    eager_s, eager_run = time.perf_counter() - t1, eager.decode_rounds
 
     # tokens against the straight-line batch-1 reference on the card: the
     # first token of every request (a batch-1 prefill on both sides, so
     # equal), and every token of the first n_slots requests (the engine's
-    # batched decode rounds differently from batch 1 in bfloat16: a share)
+    # batched decode rounds differently from batch 1 in bfloat16: a share).
+    # A request that leaves batch-1 decode must equal padded_decode at the
+    # buckets the engine ran it in: the same function at the same shapes
     t1 = time.perf_counter()
     first_same = sum(
         reference_decode(mcfg, eng.params, r.prompt, 1, max_seq)[0]
         == r.out[0] for r in pipe.finished)
     assert first_same == len(pipe.finished), (first_same, len(pipe.finished))
-    same = 0
+    same, padded = 0, []
     for r in pipe.finished[:n_slots]:
         ref = reference_decode(mcfg, eng.params, r.prompt, max_new, max_seq)
         assert ref[0] == r.out[0] and len(ref) == len(r.out) == max_new
         same += sum(a == b for a, b in zip(ref, r.out))
+        if ref != r.out:
+            assert len(buckets[r.uid]) == max_new - 1, buckets[r.uid]
+            pad, _ = padded_decode(mcfg, eng.params, r.prompt, max_new,
+                                   max_seq, rows=buckets[r.uid])
+            padded.append(sum(a == b for a, b in zip(pad, r.out)))
     ref_s = time.perf_counter() - t1
+    assert all(n == max_new for n in padded), \
+        f"the engine differs from padded_decode at its buckets: {padded}"
 
     # a manual reconfiguration mid-decode: token-invisible, 0 bytes (VSN),
     # more than 0 bytes (SN)
@@ -2688,16 +2910,13 @@ def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
     assert vsn == base and vsn_moved == 0, vsn_moved
     assert sn == base and sn_moved > 0, sn_moved
 
-    # where a decode round's time goes: 8 lanes, 4 rounds under the profiler
-    from repro_torch.serving import Request
-    for i, p in enumerate(prompts):
-        eng.submit(Request(uid=1000 + i, prompt=p, max_new=8))
-    eng.tick()                                     # admit all + one round
-    sync()
-    profile = device_profile(lambda i: eng.tick(), 4,
-                             kernel=SERVE_KERNEL_SYMBOL[mcfg.kind])
-    while eng.running:
-        eng.tick()
+    # where a decode round's time goes: 8 lanes, 4 rounds under the
+    # profiler, in the graph and in the eager engine
+    profile = _round_profile(eng, prompts, kernels)
+    if eager.running or eager.waiting:              # a cut replay
+        eager = ServingEngine(mcfg, eng.params, n_slots=n_slots,
+                              max_seq=max_seq, device=dev, graphs=False)
+    eager_profile = _round_profile(eager, prompts, kernels)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
     lat = rep.stage_latency_ms
     out = dict(
@@ -2707,9 +2926,10 @@ def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
         prompt_len=prompt_len, max_new=max_new, init_s=init_s,
         requests=len(pipe.finished), tokens=tokens,
         prefills=prefills, decode_rounds=rounds,
-        kernel_calls=mcfg.n_layers * forwards,
+        kernel_calls={k: mcfg.n_layers * forwards for k in kernels},
         first_tokens_equal_reference=first_same,
         token_share_equal_reference=same / (n_slots * max_new),
+        requests_off_batch1=len(padded),
         reference_s=ref_s,
         runtime=dict(ticks=rep.ticks, wall_s=rep.wall_s,
                      tokens_per_s=tokens / rep.wall_s,
@@ -2721,6 +2941,14 @@ def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
                      slo_breaches=len(rep.slo_breaches)),
         decode_round_ms=lat.get("serve.decode"),
         prefill_ms=lat.get("serve.prefill"),
+        graphs=graphs,
+        eager=dict(rounds=eager_run, seconds=eager_s,
+                   requests_token_identical_to_graph=len(eager_out),
+                   requests_complete=sum(out == served[uid] for uid, out
+                                         in eager_out.items()),
+                   decode_round_ms=eager_lat.get("serve.decode"),
+                   prefill_ms=eager_lat.get("serve.prefill"),
+                   profile=eager_profile),
         manual_reconfig=dict(vsn_bytes=vsn_moved, sn_bytes=sn_moved,
                              tokens_unchanged=True),
         profile=profile, peak_gb=peak_gb, launches=launches)
@@ -2733,35 +2961,59 @@ def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
                           dropped_tokens=int(eng.dropped),
                           dropped_main_path=main_dropped,
                           dropped_main_path_decode=main_dropped_decode)
-    del rt, pipe, eng
-    if cuda:
-        torch.cuda.empty_cache()
+    del rt, pipe, eng, eager
+    _free_card(dev)
 
     # float32, full width, cut to check_layers layers: token identity with
     # lanes at mixed depths: 12 prompts of 9 lengths and 4 budgets over
     # the 8 slots, half arriving 3 rounds late, so decode rounds batch
-    # lanes at different positions and freed slots are reused mid-run
+    # lanes at different positions and freed slots are reused mid-run.
+    # Held against padded_decode at the buckets the engine ran each
+    # request in, and against batch-1 reference_decode: every model, but
+    # the MoE's vsn sum rounds to bfloat16 even in float32, so a last-bit
+    # difference between two shapes' products can move a near tie; the
+    # MoE may leave batch 1 on one request, at a token whose top-2 logit
+    # gap in the reference is below MOE_BATCH1_GAP
     cfg32 = dataclasses.replace(mcfg, dtype="float32", n_layers=check_layers)
     params = transformer.init_params(cfg32, seed=3, device=dev)
     eng = ServingEngine(cfg32, params, n_slots=n_slots, max_seq=max_seq,
                         n_instances=4, device=dev)
+    rows = record_buckets(eng)
     n32 = n_slots + n_slots // 2
     lens = [max(prompt_len - 9 * (i % 9), 2) for i in range(n32)]
     news = [max(max_new - 5 * (i % 4), 1) for i in range(n32)]
     prompts32 = [rng.integers(1, mcfg.vocab, n) for n in lens]
     got, _ = _engine_tokens(eng, prompts32, news,
                             arrive=[3 * (i % 2) for i in range(n32)])
-    f32_same = sum(got[i] == reference_decode(cfg32, params, p, news[i],
-                                              max_seq)
+    del eng._run
+    f32_same = sum(got[i] == padded_decode(cfg32, params, p, news[i],
+                                           max_seq, rows=rows.get(i, []))[0]
                    for i, p in enumerate(prompts32))
+    batch1 = [reference_decode(cfg32, params, p, news[i], max_seq)
+              for i, p in enumerate(prompts32)]
+    off_gaps = {}
+    for i, want in enumerate(batch1):
+        if got[i] != want:
+            toks, gaps = padded_decode(cfg32, params, prompts32[i], news[i],
+                                       max_seq)
+            assert toks == want
+            j = next(j for j, (a, b) in enumerate(zip(got[i], want))
+                     if a != b)
+            off_gaps[i] = (j, gaps[j])
     assert f32_same == n32, (f32_same, n32)
+    assert (not off_gaps or mcfg.kind == "moe" and len(off_gaps) == 1
+            and all(g < MOE_BATCH1_GAP for _, g in off_gaps.values())), \
+        off_gaps
     out["float32_copy"] = dict(layers=check_layers, requests=n32,
                                prompt_lens=sorted(set(lens)),
                                tokens_per_request=sorted(set(news)),
-                               requests_token_identical=f32_same)
+                               requests_token_identical=f32_same,
+                               requests_token_identical_batch1=n32 - len(
+                                   off_gaps),
+                               batch1_first_differing=off_gaps,
+                               graphs=len(eng.graph_stats()))
     del eng, params
-    if cuda:
-        torch.cuda.empty_cache()
+    _free_card(dev)
     return out
 
 
@@ -2810,7 +3062,8 @@ def main(argv) -> int:
                 q1_ingest_tier, q1_recovery, launchers,
                 functools.partial(serve_full_width, arch="qwen3-14b"),
                 functools.partial(serve_full_width, arch="rwkv6-7b"),
-                functools.partial(serve_full_width, arch="deepseek-moe-16b")):
+                functools.partial(serve_full_width, arch="deepseek-moe-16b"),
+                functools.partial(serve_full_width, arch="hymba-1.5b")):
         t0 = time.perf_counter()
         phases.append(run(dev))
         phases[-1]["seconds"] = time.perf_counter() - t0
@@ -2832,7 +3085,8 @@ def main(argv) -> int:
                              "multi_tile", "tier_valid", "cluster_sweep_ms",
                              "max_active_clusters", "prefill",
                              "prefill_t1024", "chunk_sweep_ms",
-                             "decode_split_ms", "deepseek", "push_cases",
+                             "decode_split_ms", "deepseek", "hymba",
+                             "push_cases",
                              "max_abs_err_bf16", "kernels_per_call",
                              "hot_cell_hits", "even", "q3",
                              "no_hits_device_ms") if k in r})

@@ -16,7 +16,8 @@ stream live:
   ``switched`` flag, the general tick's expiry flag and the per-instance
   load vector), fetched while the current tick computes.  A tick's
   outputs reach the sink once its expiry flag is read, so a tick that
-  raises ``ExpiryBoundError`` delivers nothing;
+  raises ``ExpiryBoundError`` (a graph replay of the general tick whose
+  bounded expiry could not be shown exact) delivers nothing;
 * the **control loop** closes §8.4-§8.5: each tick a ``MetricsBus``
   snapshot is fed to the controller, and an emitted ``Reconfiguration`` is
   injected mid-stream through the control-tuple path (Alg. 5), stamped

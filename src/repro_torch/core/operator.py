@@ -21,16 +21,22 @@ mark is read; an unmarked f_S is checked on the data instead.
 ``tick_instances`` is the general tick: Alg. 2 one ready tuple at a
 time, for every VSN or SN instance in one pass (a leading ``[n]`` axis on
 ``resp``, the state and the outputs, the reference's ``vmap`` of its
-``lax.scan``).  It reads nothing back to the host: each lane is a fixed
-set of tensor operations, the lanes' watermarks and window frontiers are
-prefix maxima over the sorted batch, and the expiry's ``while`` is
-bounded (``_plan``: one masked round a slot, and under WT=single a second
-pass for each slot's last due round; where that bound cannot be shown
-exact a device flag makes the caller raise ``ExpiryBoundError``).  User
-functions run under ``torch.func.vmap``, each call seeing one slot, as the
-reference calls them.  ``tick`` is its one-instance form.  ``expire_closed`` is the whole-tick fast
-paths' expiry (one vectorised pass over the slot ring), and ``compact``
-writes their emitted rows into a fixed-size output buffer.
+``lax.scan``).  Captured, it reads nothing back to the host: each lane is
+a fixed set of tensor operations, the lanes' watermarks and window
+frontiers are prefix maxima over the sorted batch, and the expiry's
+``while`` is bounded (``_plan``: one masked round a slot, and under
+WT=single a second pass for each slot's last due round).  That bound is
+taken only where it is needed: inside a CUDA graph capture, or where it
+is exact whatever the data.  Where it may not be exact a tick run eagerly
+reads the most rounds due back to the host (one host read a tick, only
+for such operators) and runs every one of them, as the reference's
+``while`` does; a captured tick sets a device flag instead where the
+bound cannot be shown exact, and the caller raises ``ExpiryBoundError``
+after the replay.  User functions run under ``torch.func.vmap``, each
+call seeing one slot, as the reference calls them.  ``tick`` is its
+one-instance form.  ``expire_closed`` is the whole-tick fast paths'
+expiry (one vectorised pass over the slot ring), and ``compact`` writes
+their emitted rows into a fixed-size output buffer.
 
 The shared input state is never written: one state is the input of
 every VSN instance of a tick.  A tick's own buffers are written in place.
@@ -326,10 +332,11 @@ def expire_closed(op: OperatorDef, st: OpState, w, resp: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class ExpiryBoundError(RuntimeError):
-    """A bounded expiry could not be shown to equal the round-by-round
-    loop: under WT=single more than two rounds were due on a slot, and
-    after its first one the slot held an occupied key or f_S still changed
-    its state (see ``_expire``)."""
+    """A captured general tick's bounded expiry could not be shown to
+    equal the round-by-round loop: under WT=single more than two rounds
+    were due on a slot, and after its first one the slot held an occupied
+    key or f_S still changed its state (see ``_expire``).  Raised only
+    after a graph replay; an eager tick runs every due round instead."""
 
 
 _FAULTS = threading.local()
@@ -370,6 +377,12 @@ def _report(fault) -> None:
         raise_on_fault(fault)           # a standalone call: its end
     else:
         flags.append(fault)
+
+
+def _capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph."""
+    return (torch.cuda.is_initialized()
+            and torch.cuda.is_current_stream_capturing())
 
 
 def _take(a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -422,9 +435,7 @@ def _rounds(op: OperatorDef, z, occ, gen, act, resp, key_ids, fresh):
             for nm, a in z.items()}
         occ = _give(occ, s, torch.where(
             act[..., None], still.reshape(n, d, k) & occ_d, occ_d))
-        same = torch.stack([
-            (new[nm].reshape(zd[nm].shape) == zd[nm]).reshape(n, d, -1)
-            .all(-1) for nm in zd]).all(0)
+        same = _same(zd, new)
     else:
         same = None
         z = {nm: _give(a, s, torch.where(_bcast(act, zd[nm]), fresh[nm][s],
@@ -433,6 +444,24 @@ def _rounds(op: OperatorDef, z, occ, gen, act, resp, key_ids, fresh):
         occ = _give(occ, s, occ_d & ~act[..., None])
     return (z, occ, payload.reshape(n, d * k, -1), valid.reshape(n, d * k),
             same)
+
+
+def _same(zd: dict, new: dict) -> torch.Tensor:
+    """bool ``[n, D]``: f_S's result ``new`` (``[n * D, K, ...]``) is the
+    slots' state ``zd`` (``[n, D, K, ...]``) as it was."""
+    n, d = next(iter(zd.values())).shape[:2]
+    return torch.stack([
+        (new[nm].reshape(zd[nm].shape) == zd[nm]).reshape(n, d, -1).all(-1)
+        for nm in zd]).all(0)
+
+
+def _keeps(op: OperatorDef, z, s, gen) -> torch.Tensor:
+    """bool ``[n, D]``: f_S at the closing bound of generation ``gen``
+    returns the state of slot ``s`` (both ``[n, D]``) as it is."""
+    zd = {name: _take(a, s) for name, a in z.items()}
+    new, _ = torch.func.vmap(op.f_s)(_flat2(zd),
+                                     op.window.left_of(gen + 1).reshape(-1))
+    return _same(zd, new)
 
 
 def _skippable(op: OperatorDef) -> bool:
@@ -456,9 +485,16 @@ def _plan(op: OperatorDef, m, c):
     ``_skippable`` says so and otherwise checked on the data (``_expire``).
     Returns the passes ``[(gen, act)]`` (``[..., slots]`` each, rounds in
     order) and ``skips`` (``[..., slots]``: the second pass's slots with
-    rounds skipped before it, or None where none can matter)."""
+    rounds skipped before it, or None where none can matter).  Where the
+    skip may matter and the tick is not captured, the loop is run whole
+    instead: the most rounds due are read back to the host and every one
+    of them runs, a pass of ``op.slots`` rounds at a time."""
     n_s = op.slots
     d = torch.arange(n_s, dtype=torch.int32, device=m.device)
+    if op.window.wt == SINGLE and not _skippable(op) and not _capturing():
+        n_pass = max(1, -(-int(c.max()) // n_s))
+        return [(m[..., None] + j * n_s + d, j * n_s + d < c[..., None])
+                for j in range(n_pass)], None
     passes = [(m[..., None] + d, d < c[..., None])]
     skips = None
     if op.window.wt == SINGLE:
@@ -477,20 +513,24 @@ def _expire(op: OperatorDef, z, occ, passes, skips, resp, key_ids, fresh):
 
     A slot's skipped rounds are empty where, after its first round, no key
     of the slot is occupied (nothing emits, and occupancy stays false) and
-    f_S, which the last round applies at its left bound, returns the
-    slot's state as it was: the skipped rounds then apply f_S to that same
-    state.  That f_S, the same at the earlier bounds, leaves it so too is
-    taken as given: true of an f_S that ignores the bound (one that clears
-    the slot) and of a purge by it.  Anywhere else the fault is set."""
+    f_S returns the slot's state as it was both at the last round's left
+    bound and at the earliest skipped round's: the skipped rounds then
+    apply f_S to that same state.  That f_S leaves it so at the bounds
+    between too is taken as given: true of an f_S that ignores the bound
+    (one that clears the slot), of a purge by it and of one that changes
+    the state only left of some bound.  Anywhere else the fault is set."""
     rows, fault = [], None
     for i, (gen, act) in enumerate(passes):
         kept = None
         if i and skips is not None:
-            kept = _take(occ.any(dim=-1), (gen % op.slots).long())
+            s = (gen % op.slots).long()
+            kept = _take(occ.any(dim=-1), s)
+            m = passes[0][0][..., :1]
+            early = _keeps(op, z, s, m + (gen - m) % op.slots + op.slots)
         z, occ, payload, valid, same = _rounds(op, z, occ, gen, act, resp,
                                                key_ids, fresh)
         if kept is not None:
-            fault = (skips & (kept | ~same)).any()
+            fault = (skips & (kept | ~same | ~early)).any()
         rows.append((payload, valid))
     return z, occ, rows, fault
 
@@ -577,8 +617,9 @@ def tick_instances(op: OperatorDef, st: OpState, ready: T.TupleBatch,
     prefix maxima over the sorted batch, and with them every lane's
     expiry plan and window range; the lanes then run in order, each a
     fixed set of tensor operations, and their output rows are appended
-    ``EMIT_CHUNK`` lanes at a time.  Nothing is read back to the host, so
-    the tick can be captured in a CUDA graph.
+    ``EMIT_CHUNK`` lanes at a time.  Inside a CUDA graph capture nothing
+    is read back to the host; run eagerly, the tick reads the most rounds
+    due where a bounded expiry could not be exact (``_plan``).
     """
     op = op.resolved()
     ws = op.window

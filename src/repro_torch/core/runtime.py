@@ -27,11 +27,13 @@ reconfiguration's control tuples are written into the pad lanes of tick
 ``reconfig_at`` inside the graph, at a tick index held in a device tensor,
 so one graph serves the steady and the reconfiguring call alike.  Every
 tick function the repo builds is captured, the general O+ tick included
-(it reads nothing back to the host); one that does read the host makes
-the call raise ``GraphCaptureError``.  Where the general tick's bounded
-expiry cannot be shown exact it sets a device flag (``fault``) that the
-pipeline raises on at a read it already makes: the end of ``step`` and
-``run_persistent``, or the async runtime's control-lane read.
+(under capture it reads nothing back to the host); one that does read the
+host makes the call raise ``GraphCaptureError``.  The captured general
+tick's expiry is bounded (``operator._plan``); where the bound cannot be
+shown exact it sets a device flag (``fault``) that the pipeline raises on
+after the replay, at a read it already makes: the end of
+``run_persistent``, or the async runtime's control-lane read.  Run
+eagerly, the tick runs every due round instead.
 ``MeshPipeline`` comes with the mesh slice.
 """
 

@@ -28,8 +28,8 @@ reference's ``make_pipeline`` builds it.
   stream (event times intact) via ``io.sources``; a recording either
   package wrote replays in the other;
 * ``--super-batch K``  stages K consecutive ticks as one stack and runs
-  the persistent K-tick driver (one CUDA graph a shape on the card, which
-  refuses the general O+ tick: ROADMAP.md queue 3);
+  the persistent K-tick driver (one CUDA graph a shape on the card, the
+  general O+ tick included);
 * ``--fused-root``     (with ``--ingest-hosts``) runs the root merge as
   one ``scalegate_merge_stacked`` round (the default on the card);
 * ``--ingest-hosts N``  spreads the workload over N physical sources and

@@ -8,9 +8,12 @@ extension dtype, which numpy itself cannot compute in) goes through
 float32, which holds every bfloat16 value exactly.  Layers stacked
 ``[L, ...]`` under ``scan_layers`` become the port's list of per-layer
 dicts, whatever they hold: attention, the dense ``mlp``, the ``moe``
-leaves (``router``, ``wg``, ``wu``, ``wd``, ``shared_*``) or rwkv's.  ``from_reference_caches`` does the same for ``init_caches``'
-stacked caches and states, whose layout the port keeps, so tests can hand
-both packages one slot pool.
+leaves (``router``, ``wg``, ``wu``, ``wd``, ``shared_*``), rwkv's, or the
+hybrid's ``ssm`` (its float32 ``a_log`` included) and ``norm1b``.
+``from_reference_caches`` does the same for ``init_caches``' stacked
+caches and states (a dict of leaves, or the hybrid's one ``[L, B, H,
+n_state, head_dim]`` array), whose layout the port keeps, so tests can
+hand both packages one slot pool.
 """
 
 from __future__ import annotations

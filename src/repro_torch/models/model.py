@@ -39,10 +39,12 @@ def prefill_with_cache(params, inputs, caches, states, *, cfg: ModelConfig,
 
 
 def decode_step(params, caches, states, token, pos, *, cfg: ModelConfig,
-                lanes=None, with_aux: bool = False):
+                lanes=None, live=None, with_aux: bool = False):
     """One new token per lane against the KV cache / recurrent state.
 
-    token: [B] ids (or [B, D] stub embeddings); pos: int or [B] positions.
+    token: [B] ids (or [B, D] stub embeddings); pos: int or [B] positions
+    (a device tensor keeps the depth off the host); ``live`` (bool [B]):
+    the lanes whose MoE drops count (``transformer.forward``).
     """
     inputs = token[:, None]
     positions = torch.as_tensor(pos, device=token.device).reshape(-1, 1)
@@ -50,5 +52,5 @@ def decode_step(params, caches, states, token, pos, *, cfg: ModelConfig,
         positions = positions.expand(token.shape[0], 1)
     logits, caches, states, aux = transformer.forward(
         params, cfg, inputs, positions, caches=caches, states=states,
-        lanes=lanes)
+        lanes=lanes, live=live)
     return (logits[:, -1], caches, states) + ((aux,) if with_aux else ())

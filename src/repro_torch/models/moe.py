@@ -120,7 +120,7 @@ def _sn_moe(p, x, cfg: ModelConfig):
     start = torch.cumsum(counts, 1) - counts               # exclusive prefix
     pos = torch.arange(nk, device=x.device) - start.gather(1, se)
     keep = pos < cap
-    dropped = (g * nk - keep.sum()).to(torch.int32)
+    dropped = (nk - keep.sum(1)).to(torch.int32)            # a group
     slot = torch.where(keep, se * cap + pos, e * cap)      # e * cap: dropped
     xe = torch.zeros((g, e * cap + 1, d), dtype=x.dtype, device=x.device)
     xe.scatter_(1, slot[..., None].expand(g, nk, d),
@@ -152,7 +152,7 @@ def _vsn_moe(p, x, cfg: ModelConfig):
     take = order[..., :cap]                                # [G, E, C]
     c = take.shape[-1]
     took = hit.gather(2, take)
-    dropped = (hit.sum() - took.sum()).to(torch.int32)
+    dropped = (hit.sum((1, 2)) - took.sum((1, 2))).to(torch.int32)
     rows = take.reshape(g, e * c)
     xe = x.gather(1, rows[..., None].expand(g, e * c, d)) * took.reshape(
         g, e * c, 1).to(x.dtype)
@@ -168,12 +168,16 @@ def _vsn_moe(p, x, cfg: ModelConfig):
 
 
 def moe_forward(p, x, cfg: ModelConfig, *, per_row: bool = False,
-                n_shards: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+                live=None, n_shards: int = 1
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, D] -> (y [B, S, D], dropped: int32 pairs dropped).
 
     ``per_row`` routes each batch row as a group of its own (capacity per
-    row); otherwise the B * S tokens form one group.  ``n_shards`` is the
-    expert-axis width of ``dispatch="vsn"``; only 1 is ported."""
+    row); otherwise the B * S tokens form one group.  ``live`` (bool [B],
+    with ``per_row``) names the rows whose drops count: the serving
+    engine's pad rows route too, but drop nothing of a request.
+    ``n_shards`` is the expert-axis width of ``dispatch="vsn"``; only 1 is
+    ported."""
     b, s, d = x.shape
     m = cfg.moe
     if m.dispatch == "vsn" and n_shards != 1:
@@ -187,6 +191,11 @@ def moe_forward(p, x, cfg: ModelConfig, *, per_row: bool = False,
         y, dropped = _vsn_moe(p, xg, cfg)
     else:
         raise ValueError(f"unknown MoE dispatch {m.dispatch!r}")
+    if live is not None:
+        if not per_row:
+            raise ValueError("live names rows: it needs per_row")
+        dropped = torch.where(live, dropped, 0)
+    dropped = dropped.sum(dtype=torch.int32)
     y = y.reshape(b * s, d)
     if m.n_shared:
         y = y + swiglu(x.reshape(b * s, d), p["shared_wg"], p["shared_wu"],

@@ -1,22 +1,27 @@
 """Decoder stack assembly: block dispatch by arch kind, embeddings/unembed.
 
 Held against ``src/repro/models/transformer.py`` for the kinds ``dense``
-(with ``window_pattern`` and ``frontend="embedding_stub"``), ``moe`` and
-``rwkv``.
+(with ``window_pattern`` and ``frontend="embedding_stub"``), ``moe``,
+``rwkv`` and ``hybrid`` (attention and SSM heads side by side on one
+input, ``x + 0.5 * (attn + ssm)``).
 Layers are a Python list walked in order; the reference's
 ``scan_layers``/``remat`` have no counterpart in eager code.  Parameters
 are a dict with ``layers`` a list of per-layer dicts; caches and recurrent
-states keep the reference's stacked ``[L, B, ...]`` layout, and ``forward``
-updates them in place (the reference returns new arrays) and returns them
-with the reference's ``aux``, the MoE tokens dropped over the layers.  With
-a slot pool (``lanes``) an MoE layer routes each batch row as a group of
-its own, as the reference's serving engine decodes each lane under its
-``vmap``; otherwise the ``[B, S]`` block is one group, as in the
-reference's ``forward``.
+states keep the reference's stacked ``[L, B, ...]`` layout (rwkv's a dict,
+hybrid's one float32 ``[L, B, H, n_state, head_dim]`` tensor), and
+``forward`` updates them in place (the reference returns new arrays) and
+returns them with the reference's ``aux``, the MoE tokens dropped over the
+layers.  With a slot pool (``lanes``) an MoE layer routes each batch row
+as a group of its own, as the reference's serving engine decodes each lane
+under its ``vmap``; otherwise the ``[B, S]`` block is one group, as in the
+reference's ``forward``.  ``live`` (bool ``[B]``) marks the rows that are
+real requests: the serving engine pads a round to its bucket with rows
+that read and write a scratch row of the pool, and their MoE drops are
+not counted.
 ``init_params`` draws from an explicit ``torch.Generator`` on the target
 device: the reference's distributions, not JAX's bits (the tests carry
 the reference's own parameters across with ``convert.from_reference``).
-The ``hybrid`` kind and ``loss_fn`` (training) are not ported yet.
+``loss_fn`` (training) is not ported yet.
 """
 
 from __future__ import annotations
@@ -27,19 +32,19 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.models import attention, moe as moe_mod, rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (embed, init_dense, rms_norm, swiglu,
                                        unembed)
 
 BIG_WINDOW = 1 << 30
-KINDS = ("dense", "moe", "rwkv")
+KINDS = ("dense", "moe", "rwkv", "hybrid")
 
 
 def check_kind(cfg: ModelConfig) -> None:
     if cfg.kind not in KINDS:
-        raise NotImplementedError(
-            f"model kind {cfg.kind!r} ({cfg.name}) is not ported yet: the "
-            f"port has {KINDS}; ssm/hybrid is ROADMAP.md queue 1 item 7")
+        raise ValueError(f"unknown model kind {cfg.kind!r} ({cfg.name}); "
+                         f"the kinds are {KINDS}")
 
 
 def layer_windows(cfg: ModelConfig) -> Optional[List[int]]:
@@ -62,6 +67,9 @@ def init_layer(gen, cfg: ModelConfig, dtype, device=None):
         p["cm"] = rwkv_mod.init_channel_mix(gen, cfg, dtype, device)
         return p
     p["attn"] = attention.init_attn(gen, cfg, dtype, device)
+    if cfg.kind == "hybrid":
+        p["ssm"] = ssm_mod.init_ssm(gen, cfg, dtype, device)
+        p["norm1b"] = torch.zeros((d,), dtype=dtype, device=device)
     if cfg.kind == "moe":
         p["moe"] = moe_mod.init_moe(gen, cfg, dtype, device)
         return p
@@ -74,11 +82,13 @@ def init_layer(gen, cfg: ModelConfig, dtype, device=None):
 
 
 def block_forward(p, x, positions, cfg: ModelConfig, *, window=None,
-                  cache=None, state=None, index=None, per_row=False):
+                  cache=None, state=None, index=None, per_row=False,
+                  live=None):
     """One decoder block.  Returns (x, cache, new_state, aux), ``aux`` the
     MoE tokens dropped (float32; None for the other kinds).  ``index``:
     the forward's ``attention.cache_index``, shared by its layers;
-    ``per_row``: route the MoE per batch row."""
+    ``per_row``: route the MoE per batch row; ``live``: the rows whose
+    drops count."""
     aux = None
     if cfg.kind == "rwkv":
         h, shift_tm, wkv = rwkv_mod.time_mix_forward(
@@ -95,11 +105,16 @@ def block_forward(p, x, positions, cfg: ModelConfig, *, window=None,
     attn_out, cache = attention.attn_forward(
         p["attn"], h, positions, cfg, window=window, cache=cache,
         index=index)
-    x = x + attn_out
+    if cfg.kind == "hybrid":
+        ssm_out, state = ssm_mod.ssm_forward(
+            p["ssm"], rms_norm(x, p["norm1b"], cfg.norm_eps), cfg, state)
+        x = x + 0.5 * (attn_out + ssm_out)
+    else:
+        x = x + attn_out
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     if cfg.kind == "moe":
         ffn_out, dropped = moe_mod.moe_forward(p["moe"], h, cfg,
-                                               per_row=per_row)
+                                               per_row=per_row, live=live)
         aux = dropped.to(torch.float32)
     else:
         ffn_out = swiglu(h, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"])
@@ -129,25 +144,52 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None):
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int, device=None):
-    """Stacked [L, ...] KV caches (dense) or recurrent states (rwkv)."""
+    """Stacked [L, ...] KV caches (dense, moe, hybrid) and recurrent
+    states (rwkv; hybrid's SSM state)."""
     check_kind(cfg)
     dev = _device.resolve(device)
     stack = lambda tree: {k: torch.stack([v] * cfg.n_layers)
                           for k, v in tree.items()}
     if cfg.kind == "rwkv":
         return None, stack(rwkv_mod.init_rwkv_state(cfg, batch, dev))
-    return stack(attention.init_cache(cfg, batch, max_seq,
-                                      getattr(torch, cfg.dtype), dev)), None
+    caches = stack(attention.init_cache(cfg, batch, max_seq,
+                                        getattr(torch, cfg.dtype), dev))
+    states = None
+    if cfg.kind == "hybrid":
+        states = torch.zeros((cfg.n_layers, batch, cfg.ssm_heads,
+                              cfg.ssm_state, cfg.head_dim),
+                             dtype=torch.float32, device=dev)
+    return caches, states
+
+
+def _state_at(states, i: int, lanes):
+    """Layer ``i``'s state (rows ``lanes``, or all), dict or tensor."""
+    take = lambda v: v[i] if lanes is None else v[i][lanes]
+    if isinstance(states, torch.Tensor):
+        return take(states)
+    return {k: take(v) for k, v in states.items()}
+
+
+def _state_put(states, i: int, lanes, new) -> None:
+    """Write layer ``i``'s new state back in place."""
+    pairs = ([(states, new)] if isinstance(states, torch.Tensor)
+             else [(states[k], v) for k, v in new.items()])
+    for dst, v in pairs:
+        if lanes is None:
+            dst[i].copy_(v)
+        else:
+            dst[i][lanes] = v
 
 
 def forward(params, cfg: ModelConfig, inputs, positions, *, caches=None,
-            states=None, lanes=None):
+            states=None, lanes=None, live=None):
     """inputs: tokens [B, S] (frontend="token") or precomputed frontend
     embeddings [B, S, D]; positions: [S] or [B, S].  ``lanes`` (i64[B])
     maps batch rows to rows of ``caches``/``states`` (a slot pool); left
-    out, row b is row b.  Returns (logits, caches, states, aux); caches
-    and states are updated in place (rwkv without states starts from
-    zeros)."""
+    out, row b is row b.  ``live`` (bool [B], with ``lanes``): the rows
+    whose MoE drops count.  Returns (logits, caches, states, aux); caches
+    and states are updated in place (rwkv and hybrid without states start
+    from zeros)."""
     check_kind(cfg)
     if cfg.frontend == "token":
         x = embed(inputs, params["embedding"])
@@ -162,22 +204,15 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, caches=None,
     for i, layer_p in enumerate(params["layers"]):
         cache = (None if caches is None
                  else {k: v[i] for k, v in caches.items()})
-        state = None
-        if states is not None:
-            state = {k: v[i] if lanes is None else v[i][lanes]
-                     for k, v in states.items()}
+        state = None if states is None else _state_at(states, i, lanes)
         x, _, new_state, layer_aux = block_forward(
             layer_p, x, positions, cfg,
             window=None if windows is None else windows[i], cache=cache,
-            state=state, index=index, per_row=lanes is not None)
+            state=state, index=index, per_row=lanes is not None, live=live)
         if layer_aux is not None:
             aux = aux + layer_aux
         if states is not None:
-            for k, v in new_state.items():
-                if lanes is None:
-                    states[k][i].copy_(v)
-                else:
-                    states[k][i][lanes] = v
+            _state_put(states, i, lanes, new_state)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(x, params.get("unembed", params["embedding"]))
     return logits, caches, states, aux

@@ -14,9 +14,15 @@ that the port calls under ``torch.func.vmap`` (they read their window
 index as a scalar), ScaleJoin (lazy, a user ``f_U``), multi-key tuples,
 first contact from ``UNSET_L`` and the explicit end-of-tick watermark;
 the state handed to a tick is left as it was.
-Two cases must raise, each a user ``f_S`` under WT=single with more than
-two rounds closing on a slot: one keeps the slot occupied, the other
-empties it but goes on halving its sums (which a later ``f_U`` reads)."""
+Three cases close more than two rounds on a slot with a user ``f_S``
+under WT=single, past what the bounded expiry can show exact: one keeps
+the slot occupied, one empties it but goes on halving its sums (which a
+later ``f_U`` reads), and one halves them only at bounds left of
+``EARLY``, so that f_S is exact at the last due round but not at the
+earliest skipped one.  The eager tick sees its flag and runs every due
+round, so these equal the reference too (``-raises`` names the two that
+raised ``ExpiryBoundError`` before), through ``tick``, ``run_tick`` and a
+``VSNPipeline`` against the reference's."""
 
 import dataclasses
 
@@ -29,6 +35,7 @@ import jax
 import jax.numpy as jnp
 
 import _tick_oracle as oracle
+from _capturing import _Capturing
 from _torch_bridge import assert_tree_equal, np_tree, to_port
 from repro.core import aggregate as JA
 from repro.core import join as JJ
@@ -43,6 +50,7 @@ from repro_torch.core import vsn as PV
 from repro_torch.core.windows import WindowSpec as PWS
 
 K, KMAX, B, P = 6, 2, 7, 2
+EARLY = 60          # the "early" f_S halves the sums left of this bound
 
 
 # ------------------------------------------------ user functions, twice --
@@ -50,8 +58,10 @@ def _user(xp, mode):
     """A sum aggregate written for one slot (its window index is a scalar
     it computes with), in ``xp`` = jnp or torch.  ``f_U`` emits a key's
     running sum on its second tuple; ``f_S`` clears the slot (``clear``),
-    halves the sums and keeps every counted key occupied (``keep``), or
-    halves the sums and marks no key occupied (``decay``)."""
+    halves the sums and keeps every counted key occupied (``keep``),
+    halves the sums and marks no key occupied (``decay``), or halves them
+    only at bounds left of ``EARLY`` and marks no key occupied
+    (``early``)."""
     where = xp.where
 
     def f_u(z, tup, l, mask):
@@ -78,6 +88,9 @@ def _user(xp, mode):
             return {"acc": z["acc"] * 0.5, "n": z["n"]}, z["n"] > 0
         if mode == "decay":
             return {"acc": z["acc"] * 0.5, "n": z["n"]}, z["n"] > 100
+        if mode == "early":
+            return ({"acc": where(new_left < EARLY, z["acc"] * 0.5,
+                                  z["acc"]), "n": z["n"]}, z["n"] > 100)
         return ({"acc": z["acc"] * 0, "n": z["n"] * 0},
                 where(z["n"] > 100, True, False))
     return f_u, f_o, f_s
@@ -175,38 +188,40 @@ def _jit_run_tick(jop):
 
 
 CASES = [
-    # (operator, wt, lazy, explicit_w every other tick, raises)
-    ("count", "multi", False, False, False),
-    ("count", "single", False, True, False),
-    ("count", "multi", True, False, False),
-    ("longest", "multi", False, True, False),
-    ("longest", "single", True, False, False),
-    ("table1", "multi", False, False, False),
-    ("table1", "single", False, True, False),
-    ("user_clear", "multi", False, False, False),
-    ("user_clear", "single", False, True, False),
-    ("user_keep", "single", False, False, False),
-    ("scalejoin", "single", True, False, False),
-    ("user_keep", "single", False, False, True),
-    ("user_decay", "single", False, False, False),
-    ("user_decay", "single", False, False, True),
+    # (operator, wt, lazy, explicit_w every other tick, past the bound:
+    #  "" or the id's suffix)
+    ("count", "multi", False, False, ""),
+    ("count", "single", False, True, ""),
+    ("count", "multi", True, False, ""),
+    ("longest", "multi", False, True, ""),
+    ("longest", "single", True, False, ""),
+    ("table1", "multi", False, False, ""),
+    ("table1", "single", False, True, ""),
+    ("user_clear", "multi", False, False, ""),
+    ("user_clear", "single", False, True, ""),
+    ("user_keep", "single", False, False, ""),
+    ("scalejoin", "single", True, False, ""),
+    ("user_keep", "single", False, False, "raises"),
+    ("user_decay", "single", False, False, ""),
+    ("user_decay", "single", False, False, "raises"),
+    ("user_early", "single", False, False, "past"),
 ]
 
 
 @pytest.mark.parametrize(
-    "name,wt,lazy,explicit,raises", CASES,
+    "name,wt,lazy,explicit,past", CASES,
     ids=[f"{c[0]}-{c[1]}{'-lazy' if c[2] else ''}"
-         f"{'-explicit' if c[3] else ''}{'-raises' if c[4] else ''}"
+         f"{'-explicit' if c[3] else ''}{'-' + c[4] if c[4] else ''}"
          for c in CASES])
 def test_general_tick_equals_reference_and_oracle(name, wt, lazy, explicit,
-                                                  raises):
+                                                  past):
     jop, pop = _ops(name, wt, lazy)
     s = pop.slots
     # a user f_S that keeps its slot occupied or changing is exact up to
-    # two rounds a slot, and flagged past them
-    gaps = ([0, 1, 2, s, 3 * s + 1] if name not in ("user_keep", "user_decay")
-            else [0, 1, 2, s, 2 * s])
-    if raises:
+    # two rounds a slot under the bound, and run round by round past them
+    gaps = ([0, 1, 2, s, 3 * s + 1] if not name.startswith(
+        ("user_keep", "user_decay", "user_early")) else [0, 1, 2, s, 2 * s])
+    if past:
         gaps = [0, 3 * s + 1]
     width = 1 if name == "scalejoin" else P
     batches = _stream(7, pop.window.wa, gaps, width)
@@ -221,15 +236,6 @@ def test_general_tick_equals_reference_and_oracle(name, wt, lazy, explicit,
     for i, b in enumerate(batches):
         pb = to_port(b)
         w = int(np.asarray(b.tau).max()) + 15 if explicit and i % 2 else None
-        if raises and i == len(batches) - 1:
-            with pytest.raises(POP.ExpiryBoundError):
-                POP.tick(pop, ps, pb, torch.from_numpy(resp))
-            with pytest.raises(POP.ExpiryBoundError):
-                PV.run_tick(pop, pv, pb, torch.from_numpy(fmu),
-                            torch.from_numpy(active))
-            with pytest.raises(POP.ExpiryBoundError):
-                _flag_in_a_pipeline(pop, batches)
-            return
         js, jo = jt(js, b, jnp.asarray(resp),
                     None if w is None else jnp.int32(w))
         inputs = (ps, pv)
@@ -253,25 +259,100 @@ def test_general_tick_equals_reference_and_oracle(name, wt, lazy, explicit,
         assert int((ps.zeta["tau"] >= 0).sum()) > 0 and emitted == 0
     elif not lazy or name == "scalejoin":
         assert emitted > 0
+    if past:
+        _pipeline_equals_reference(jop, pop, batches)
 
 
-def _flag_in_a_pipeline(pop, batches):
-    """The same stream through a VSN pipeline's ``step``: the flag raised
-    at the end of the step that set it."""
+def _pipeline_equals_reference(jop, pop, batches):
+    """The same stream through the port's ``VSNPipeline.step`` and the
+    reference's: equal outputs and switch flags, tick for tick."""
+    from repro.core.runtime import VSNPipeline as JVSN
     from repro_torch.core.runtime import VSNPipeline
+    jpipe = JVSN(jop, n_max=3, n_active=2, stash_cap=2 * B)
     pipe = VSNPipeline(pop, n_max=3, n_active=2, stash_cap=2 * B,
                        device="cpu")
     for b in batches:
-        pipe.step(to_port(b))
+        for want, got in zip(jpipe.step(b), pipe.step(to_port(b))):
+            assert_tree_equal(np_tree(want), np_tree(got))
+
+
+def _captured(monkeypatch, fn):
+    """``fn`` with every call run as a capture acted out on the CPU
+    (``_Capturing``): the bounded expiry, its flag collected, computing
+    what a replay of the call's graph computes."""
+    def call(*a, **kw):
+        with torch.cuda.graph(None):
+            return fn(*a, **kw)
+    _Capturing(monkeypatch)
+    return call
+
+
+def test_the_earliest_skipped_bound_is_checked(monkeypatch):
+    """The ``early`` f_S returns the state unchanged at the last due
+    round's bound but halves it at the earliest skipped one: a captured
+    tick's bounded expiry sets its flag there, while a check of the last
+    bound alone would have passed."""
+    _, pop = _ops("user_early", "single", False)
+    s = pop.slots
+    batches = [to_port(b) for b in _stream(7, pop.window.wa,
+                                           [0, 3 * s + 1], P)]
+    resp = torch.from_numpy(np.arange(K) % 3 != 1)
+    tick = _captured(monkeypatch, POP.tick)
+    seen = []
+    st = pop.init_state("cpu")
+    for b in batches:
+        with POP.expiry_faults() as flags:
+            st, _ = tick(pop, st, b, resp)
+        seen.append(bool(POP.any_fault(flags)))
+    assert seen == [False, True]
+
+
+def test_a_captured_tick_past_the_bound_raises_after_the_replay(
+        monkeypatch):
+    """The persistent driver, its ticks captured (acted out on the CPU):
+    ``user_keep`` under WT=single past what the bounded expiry can show
+    exact sets the flag, ``run_persistent`` raises ``ExpiryBoundError``
+    after the call, and the live runtime's super-batch holding that tick
+    reaches no sink; the super-batch before it does.  Run eagerly, the
+    same stream equals the reference's pipeline."""
+    from repro_torch.core.async_runtime import AsyncStreamRuntime
+    from repro_torch.core.runtime import VSNPipeline
+    from repro_torch.io.sinks import CollectSink
+    from repro_torch.io.sources import ReplaySource
+    jop, pop = _ops("user_keep", "single", False)
+    s = pop.slots
+    raw = _stream(7, pop.window.wa, [0, 1, 3 * s + 1, 0], P)
+    batches = [to_port(b) for b in raw]
+    _pipeline_equals_reference(jop, pop, raw)
+
+    def pipe():
+        p = VSNPipeline(pop, n_max=3, n_active=2, stash_cap=2 * B,
+                        device="cpu")
+        monkeypatch.setattr(p, "_persistent_ticks",
+                            _captured(monkeypatch, p._persistent_ticks))
+        return p
+    p = pipe()
+    assert p.run_persistent(batches[:2]).fault is not None
+    with pytest.raises(POP.ExpiryBoundError):
+        p.run_persistent(batches[2:])
+    sink = CollectSink()
+    rt = AsyncStreamRuntime(pipe(), ReplaySource(batches), sink=sink,
+                            super_batch=2)
+    with pytest.raises(POP.ExpiryBoundError):
+        rt.run()
+    assert [t for t, _, _ in sink._held] == [0]
 
 
 @pytest.mark.parametrize("every", [0, 1], ids=["no-checkpoint",
                                                "checkpoint-every-tick"])
-def test_a_flagged_tick_reaches_neither_sink_nor_checkpoint(tmp_path, every):
+def test_a_flagged_tick_reaches_neither_sink_nor_checkpoint(tmp_path, every,
+                                                          monkeypatch):
     """The live runtime reads a tick's expiry flag before its outputs go
-    to the sink and before the state after it is saved: with the flag set
-    at tick 1, the sink holds tick 0's outputs alone and the last
-    checkpoint is the boundary before tick 1."""
+    to the sink and before the state after it is saved.  Eagerly the
+    stream past the bound sets no flag (the tick runs every due round):
+    all three ticks reach the sink.  With its ticks captured (acted out on
+    the CPU), tick 1 sets the flag: the sink holds tick 0's outputs alone
+    and the last checkpoint is the boundary before tick 1."""
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.checkpoint.stream import StreamCheckpointer
     from repro_torch.core.async_runtime import AsyncStreamRuntime
@@ -284,6 +365,14 @@ def test_a_flagged_tick_reaches_neither_sink_nor_checkpoint(tmp_path, every):
                                            [0, 3 * s + 1, 0], P)]
     pipe = VSNPipeline(pop, n_max=3, n_active=2, stash_cap=2 * B,
                        device="cpu")
+    sink = CollectSink()
+    AsyncStreamRuntime(pipe, ReplaySource(batches), sink=sink).run()
+    assert [t for t, _, _ in sink._held] == [0, 1, 2]
+
+    pipe = VSNPipeline(pop, n_max=3, n_active=2, stash_cap=2 * B,
+                       device="cpu")
+    monkeypatch.setattr(pipe, "step_staged",
+                        _captured(monkeypatch, pipe.step_staged))
     sck = (StreamCheckpointer(Checkpointer(str(tmp_path)), every, pipe)
            if every else None)
     sink = CollectSink()

@@ -2,8 +2,9 @@
 (dense GQA, qk-norm), rwkv6-7b (the linear-scan recurrence), gemma3-4b
 (sliding windows; 6 layers so that the 6th is global), deepseek-moe-16b
 and qwen3-moe-30b-a3b (MoE, one-shard ``vsn`` dispatch; shared experts in
-deepseek), with the reference's own parameters carried across by
-``convert.from_reference``.
+deepseek) and hymba-1.5b (hybrid: attention and SSM heads in parallel,
+the SSM's recurrence through the linear-scan kernel), with the
+reference's own parameters carried across by ``convert.from_reference``.
 
 ``forward``, ``prefill_with_cache`` and several ``decode_step``s agree
 with the reference's logits within 1e-4 in float32, with equal greedy
@@ -40,7 +41,7 @@ from repro_torch.models import convert, model as PM, moe as PMOE
 from repro_torch.models import transformer as PT
 
 ARCHS = ["qwen3-14b", "rwkv6-7b", "gemma3-4b", "deepseek-moe-16b",
-         "qwen3-moe-30b-a3b"]
+         "qwen3-moe-30b-a3b", "hymba-1.5b"]
 BF16_ATOL = 4e-2
 MOE_F32_LOGITS_ATOL = 3e-4
 MOE_F32_CACHE_ATOL = 1.5e-3
@@ -72,6 +73,14 @@ def _pair(arch, dtype):
                 ids=lambda p: f"{p[0]}-{p[1]}")
 def pair(request):
     return _pair(*request.param)
+
+
+def _named(tree):
+    """Caches or states as a dict of leaves (the hybrid's SSM state is
+    one array)."""
+    if tree is None or isinstance(tree, dict):
+        return tree or {}
+    return {"ssm_state": tree}
 
 
 def _logits_close(want, got, dtype, kind="dense"):
@@ -168,7 +177,9 @@ def test_prefill_and_decode_match_reference(pair):
         return            # bfloat16 rounding differences accumulate in state
     for ref_tree, port_tree in ((rc, pc), (rs, ps)):
         assert (ref_tree is None) == (port_tree is None)
-        for name in (ref_tree or {}):
+        ref_tree, port_tree = _named(ref_tree), _named(port_tree)
+        assert set(ref_tree) == set(port_tree)
+        for name in ref_tree:
             np.testing.assert_allclose(
                 port_tree[name].numpy(), np.asarray(ref_tree[name]),
                 atol=MOE_F32_CACHE_ATOL if cfg.kind == "moe" else 1e-4,
@@ -280,7 +291,7 @@ def test_init_params_on_the_device_has_the_references_shapes():
     """The port's own initializer (a seeded ``torch.Generator``): the
     reference's tree of shapes and dtypes, its scales, and the same draw
     for the same seed (different bits from JAX's, by design)."""
-    for arch in ("qwen3-14b", "rwkv6-7b"):
+    for arch in ("qwen3-14b", "rwkv6-7b", "hymba-1.5b"):
         cfg, pcfg = _configs(arch)
         ref = jax.tree.map(np.asarray, RT.init_params(jax.random.PRNGKey(0),
                                                       cfg))
@@ -300,26 +311,19 @@ def test_init_params_on_the_device_has_the_references_shapes():
         assert abs(float(a["embedding"].float().std()) / 0.02 - 1) < 0.1
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b"])
 def test_moe_and_hybrid_are_not_ported_yet(arch):
-    """What is left: the hybrid kind, and the MoE's ``vsn`` dispatch over
-    more than one expert shard (it needs the mesh)."""
+    """What is left: the MoE's ``vsn`` dispatch over more than one expert
+    shard (it needs the mesh).  The hybrid kind is ported: its case went
+    with the refusal, and hymba-1.5b is one of ``ARCHS`` and of
+    ``tests/test_torch_ssm.py``."""
     _, pcfg = _configs(arch)
-    if arch == "deepseek-moe-16b":
-        p = PMOE.init_moe(torch.Generator().manual_seed(0), pcfg,
-                          torch.float32, "cpu")
-        x = torch.zeros(1, 2, pcfg.d_model)
-        assert PMOE.moe_forward(p, x, pcfg)[0].shape == x.shape
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PMOE.moe_forward(p, x, pcfg, n_shards=2)
-        return
+    p = PMOE.init_moe(torch.Generator().manual_seed(0), pcfg,
+                      torch.float32, "cpu")
+    x = torch.zeros(1, 2, pcfg.d_model)
+    assert PMOE.moe_forward(p, x, pcfg)[0].shape == x.shape
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PT.init_params(pcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PT.init_caches(pcfg, 1, 8, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PT.forward({}, pcfg, torch.zeros(1, 2, dtype=torch.long),
-                   torch.arange(2))
+        PMOE.moe_forward(p, x, pcfg, n_shards=2)
 
 
 # ------------------------------------------------------------------ MoE --
@@ -432,3 +436,24 @@ def test_moe_decode_routes_each_lane_alone(arch):
         pp, one_group[0], None, torch.tensor(firsts), pos, cfg=pcfg,
         with_aux=True)
     assert float(dropped1) > 0 and not torch.allclose(lg1, lg, atol=1e-3)
+
+
+@pytest.mark.parametrize("dispatch", ["sn", "vsn"])
+def test_moe_counts_the_drops_of_live_rows_only(dispatch):
+    """Routed per row, the rows ``live`` leaves out (the serving engine's
+    pad lanes) still compute but add nothing to ``dropped``: the count is
+    the live rows' own, each row's as it drops alone, and the outputs are
+    those of the unmasked call."""
+    _, _, _, pcfg, pp = _moe_pair("deepseek-moe-16b", dispatch, None)
+    x = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(3, 12, pcfg.d_model)).astype(np.float32))
+    live = torch.tensor([True, False, True])
+    y_all, d_all = PMOE.moe_forward(pp, x, pcfg, per_row=True)
+    y, d = PMOE.moe_forward(pp, x, pcfg, per_row=True, live=live)
+    alone = [int(PMOE.moe_forward(pp, x[i:i + 1], pcfg, per_row=True)[1])
+             for i in range(3)]
+    assert min(alone) > 0 and int(d_all) == sum(alone)
+    assert int(d) == alone[0] + alone[2]
+    assert torch.equal(y, y_all)
+    with pytest.raises(ValueError, match="per_row"):
+        PMOE.moe_forward(pp, x, pcfg, live=live)

@@ -10,7 +10,6 @@ join and the general O+ tick.  Then the pieces the driver needed: the
 aggregate's expiry with no host read, the join's fixed-size emission, and
 the async runtime's super-batch grouping."""
 
-import contextlib
 import dataclasses
 import functools
 
@@ -21,6 +20,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp
 
+from _capturing import _Capturing
 from _tick_oracle import _emit as _oracle_emit
 from _tick_oracle import expire_all as _oracle_expire_all
 from _torch_bridge import assert_tree_equal, np_tree, port_reconfig, to_port
@@ -528,41 +528,6 @@ def test_instances_share_builds_once_per_key():
         c = POP.shared((object(),), lambda: built.append(1) or "z")
     d = POP.shared(key, lambda: built.append(1) or "w")
     assert (a, b, c, d) == ("x", "x", "z", "w") and len(built) == 3
-
-
-class _Capturing:
-    """A CUDA graph capture acted out on the CPU: inside ``graph`` every
-    read of a tensor's value by the host raises as the card's capture
-    does; streams, events and the graph object do nothing."""
-
-    READS = ("item", "__bool__", "tolist", "numpy", "cpu", "nonzero")
-
-    def __init__(self, monkeypatch):
-        self.mp = monkeypatch
-        stream = type("Stream", (), {
-            "wait_stream": lambda *a: None, "wait_event": lambda *a: None})
-        graph = type("Graph", (), {
-            "__init__": lambda self, **kw: None,
-            "instantiate": lambda self: None, "replay": lambda self: None,
-            "raw_cuda_graph": lambda self: 0})
-        for name, value in (("Stream", lambda *a: stream()),
-                            ("current_stream", lambda *a: stream()),
-                            ("stream", lambda s: contextlib.nullcontext()),
-                            ("CUDAGraph", graph), ("graph", self.graph)):
-            monkeypatch.setattr(torch.cuda, name, value)
-        monkeypatch.setattr(torch.Tensor, "record_stream", lambda *a: None)
-        monkeypatch.setattr(torch.Tensor, "pin_memory", lambda t: t)
-
-    @contextlib.contextmanager
-    def graph(self, g, capture_error_mode=None):
-        def refuse(*a, **kw):
-            raise RuntimeError("CUDA error: operation not permitted when "
-                               "stream is capturing")
-        with pytest.MonkeyPatch.context() as mp:
-            for name in self.READS:
-                mp.setattr(torch.Tensor, name, refuse)
-            mp.setattr(torch, "nonzero", refuse)
-            yield
 
 
 def _capture_first_call(pipe, batches):

@@ -151,12 +151,14 @@ def test_sn_moves_bytes_vsn_does_not(model):
     assert moved2 == 0 and eng2.pool.kv_bytes_moved == 0
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["deepseek-moe-16b"])
+@pytest.mark.parametrize("arch", ARCHS + ["deepseek-moe-16b",
+                                          "hymba-1.5b"])
 def test_engine_tokens_equal_the_reference_engine(arch):
     """Float32, the reference's parameters carried across: the port's
     engine and the reference's give the same tokens for the same requests
     (with slot reuse: 5 requests through 3 slots).  The MoE routes each
-    decode lane alone, as the reference's per-lane ``vmap`` does."""
+    decode lane alone, as the reference's per-lane ``vmap`` does; the
+    hybrid carries its SSM state by slot."""
     cfg = dataclasses.replace(reduced(get_config(canon(arch))),
                               dtype="float32")
     pcfg = _cfg(arch, "float32")
@@ -338,7 +340,8 @@ def test_launcher_traffic_puts_the_spike_in_the_middle_third():
             for t in range(ticks)] == [160.0] * 8 + [40.0] * 16
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["deepseek-moe-16b"])
+@pytest.mark.parametrize("arch", ARCHS + ["deepseek-moe-16b",
+                                          "hymba-1.5b"])
 def test_the_models_hand_the_kernels_what_their_cuda_wrappers_take(
         arch, monkeypatch):
     """The CUDA wrappers refuse views, dtypes and shapes their kernels do
@@ -364,4 +367,6 @@ def test_the_models_hand_the_kernels_what_their_cuda_wrappers_take(
     reqs = [Request(uid=i, prompt=p, max_new=4)
             for i, p in enumerate(_prompts(cfg, 4, length=3 + 2 * 1))]
     _run(eng, reqs)
-    assert len(seen) == cfg.n_layers * (eng.prefills + eng.decode_rounds)
+    per_layer = 2 if cfg.kind == "hybrid" else 1    # attention and the SSM
+    assert len(seen) == per_layer * cfg.n_layers * (eng.prefills
+                                                    + eng.decode_rounds)
