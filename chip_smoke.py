@@ -82,14 +82,36 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
                  the torn step invisible, and the victim's committed plus
                  the replayed outputs equal the oracle's exactly; bytes,
                  capture, write and restore ms, detect→first output.
-9. ``launchers`` — ``repro_torch.launch.elastic_drill`` (straggler,
+9. ``q1_mesh`` — Q1 as in phase 3 on a 4-shard ``MeshPipeline`` (sigma in
+                 fixed key blocks, the fast count path; the four shards
+                 time-share the card): tick for tick the single-device
+                 ``VSNPipeline`` on the card and the mesh on the CPU, one
+                 switch moving the tables' bytes, no copy between devices,
+                 each block's storage unchanged; ms a tick and a profile
+                 beside ``VSNPipeline``'s.
+10. ``q1_mesh_persistent`` — the same through ``run_persistent`` (5
+                 super-batches of 8, the reconfiguration mid-scan at tick
+                 19): equal to the eager mesh run, one graph a device and
+                 shape, replays free of host syncs, no host copy.
+11. ``general_mesh`` — the general O+ tick at ``live``'s shape on 4
+                 shards, eager (== ``VSNPipeline`` and the CPU mesh) and
+                 in graphs (== eager).
+12. ``q3_mesh`` — ScaleJoin through ``vsn.shard_tick`` + ``join_local_tick``
+                 at 1 and 4 shards: equal pairs, equal total comparisons,
+                 every shard a share.
+13. ``q1_mesh_recovery`` — ``kill_restore_drill`` at ``q1_recovery``'s
+                 configuration on a 4-shard mesh with a torn save (exact
+                 parity), the restored step restored once more onto 2
+                 shards (its replay == the oracle's).
+14. ``launchers`` — ``repro_torch.launch.elastic_drill`` (straggler,
                  live, ingest, serving, crash, recovery, recovery-kill)
                  and ``live`` at 24 ticks of 256 with its oracle,
                  checkpoints and a recording followed by ``live
                  --resume``, each a process of its own on the card, and
                  the same ``live`` run on the CPU with an equal output
-                 count.
-10-13. ``serve_qwen3_14b``, ``serve_rwkv6_7b``, ``serve_deepseek_moe_16b``
+                 count; ``live --mesh 4`` with its oracle and the mesh
+                 drill (``--drills mesh --mesh 4``).
+15-18. ``serve_qwen3_14b``, ``serve_rwkv6_7b``, ``serve_deepseek_moe_16b``
                  (the MoE's one-shard ``vsn`` dispatch, each decode lane
                  routed alone; its dropped tokens counted, none in
                  decode), ``serve_hymba_1_5b`` (attention and SSM heads
@@ -111,7 +133,7 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
                  cut to 4 layers token-identical to ``reference_decode``
                  (see ``serve_full_width``).
 
-Phases 3 to 13 are the main path: each zeroes the launch counts right
+Phases 3 to 18 are the main path: each zeroes the launch counts right
 before its card run and reads them right after (``launchers`` reads each
 of its processes' counts), and the ``{"kernels": [...]}`` line reports
 their sum with phase 2's times.  Each phase's line holds its
@@ -1388,27 +1410,35 @@ def check_linear_scan(dev):
 # phase 3: Q1 wordcount through VSNPipeline (and SN on a prefix)
 # ---------------------------------------------------------------------------
 
-def q1_wordcount(dev):
+def q1_setup(k_virt, n_ticks, tick):
+    """Q1: the count operator (WA 1 s, WS 2 s), the stream (seed 7,
+    Zipf(1.3) over 50,000 words) and the 4 -> 16 reconfiguration."""
     from repro_torch.core import aggregate as agg
     from repro_torch.core.controller import (Reconfiguration, active_mask,
                                              balanced_fmu)
-    from repro_torch.core.runtime import SNPipeline, VSNPipeline
-    from repro_torch.core.vsn import merge_fast_state
     from repro_torch.core.windows import WindowSpec
     from repro_torch.data import datagen
+    op = agg.count_aggregate(WindowSpec(wa=1000, ws=2000, wt="multi"), k_virt,
+                             out_cap=4096, extra_slots=2)
+    batches = list(datagen.tweets(
+        np.random.default_rng(7), n_ticks=n_ticks, tick=tick,
+        words_per_tweet=6, vocab=50000, k_virt=k_virt, rate_per_tick=200,
+        device="cpu"))
+    rc = Reconfiguration(epoch=1, n_active=16,
+                         fmu=balanced_fmu(k_virt, 16, 16),
+                         active=active_mask(16, 16))
+    return op, batches, rc
+
+
+def q1_wordcount(dev):
+    from repro_torch.core import aggregate as agg
+    from repro_torch.core.runtime import SNPipeline, VSNPipeline
+    from repro_torch.core.vsn import merge_fast_state
     from repro_torch.io.sinks import flatten_outputs
     from repro_torch.kernels import dispatch
 
     K, N_MAX, TICK, N_TICKS, RC_AT = 4096, 16, 2048, 40, 16
-    op = agg.count_aggregate(WindowSpec(wa=1000, ws=2000, wt="multi"), K,
-                             out_cap=4096, extra_slots=2)
-    batches = list(datagen.tweets(
-        np.random.default_rng(7), n_ticks=N_TICKS, tick=TICK,
-        words_per_tweet=6, vocab=50000, k_virt=K, rate_per_tick=200,
-        device="cpu"))
-    rc = Reconfiguration(epoch=1, n_active=16,
-                         fmu=balanced_fmu(K, 16, N_MAX),
-                         active=active_mask(16, N_MAX))
+    op, batches, rc = q1_setup(K, N_TICKS, TICK)
 
     def run(cls, device, n_ticks, **kw):
         collisions = []
@@ -1641,7 +1671,9 @@ def tick_rows(out):
         o = [tree_map(lambda a: a[i], x) for x in (out.outs_pre,
                                                    out.outs_post)]
         rows.append((sorted(flatten_outputs(o[0]) + flatten_outputs(o[1])),
-                     bool(out.switched[i]), out.inst_load[i].tolist()))
+                     bool(out.switched[i]),
+                     None if out.inst_load is None
+                     else out.inst_load[i].tolist()))
     return rows
 
 
@@ -1709,27 +1741,15 @@ def q1_persistent(dev, n_ticks=40, tick=2048, k_virt=4096, k=8,
     The defaults are the card's run; smaller arguments rehearse it on the
     CPU, where there is no graph to check."""
     from repro_torch.core import aggregate as agg
-    from repro_torch.core.controller import (Reconfiguration, active_mask,
-                                             balanced_fmu)
     from repro_torch.core.runtime import VSNPipeline
     from repro_torch.core.vsn import merge_fast_state
-    from repro_torch.core.windows import WindowSpec
-    from repro_torch.data import datagen
     from repro_torch.io.sinks import flatten_outputs
     from repro_torch.kernels import dispatch
 
     N_MAX = 16
     dev = torch.device(dev)
     card = dev.type == "cuda"
-    op = agg.count_aggregate(WindowSpec(wa=1000, ws=2000, wt="multi"), k_virt,
-                             out_cap=4096, extra_slots=2)
-    batches = list(datagen.tweets(
-        np.random.default_rng(7), n_ticks=n_ticks, tick=tick,
-        words_per_tweet=6, vocab=50000, k_virt=k_virt, rate_per_tick=200,
-        device="cpu"))
-    rc = Reconfiguration(epoch=1, n_active=16,
-                         fmu=balanced_fmu(k_virt, 16, N_MAX),
-                         active=active_mask(16, N_MAX))
+    op, batches, rc = q1_setup(k_virt, n_ticks, tick)
 
     def pipeline(device):
         """The pipeline and its device-side ring-overrun total: the tick
@@ -2438,7 +2458,395 @@ def q1_recovery(dev, n_ticks=40, tick=2048, k_virt=4096, k=8, join_at=9,
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the stream launchers on the card (elastic_drill, live)
+# phases 9-13: the stream mesh (MeshPipeline, sigma in fixed key blocks)
+# ---------------------------------------------------------------------------
+
+def mesh_pipeline(op, n_shards, device, stash_cap):
+    """Q1's ``n_shards``-shard mesh on the fast count path, 4 of 16
+    instances active."""
+    from repro_torch.core.runtime import MeshPipeline
+    from repro_torch.launch.mesh import make_stream_mesh
+    return MeshPipeline(op, make_stream_mesh(n_shards, device),
+                        stash_cap=stash_cap, mode="fast-agg", n_max=16,
+                        n_active=4)
+
+
+def eager_rows(pipe, batches, rc, rc_at):
+    """One ``step_staged`` a tick: per tick (sorted outputs, switched) and
+    seconds (host clock, each tick synchronized)."""
+    from repro_torch.io.sinks import flatten_outputs
+    rows, seconds = [], []
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        o1, o2, sw, _ = pipe.step_staged(b, reconfig=rc if i == rc_at
+                                         else None)
+        if pipe.device.type == "cuda":
+            torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        rows.append((sorted(flatten_outputs(o1) + flatten_outputs(o2)),
+                     bool(sw)))
+    return rows, seconds
+
+
+def block_storage(pipe):
+    """Each shard's block as (data pointer, shape) a leaf."""
+    from repro_torch.tree import tree_leaves
+    return [[(a.data_ptr(), tuple(a.shape)) for a in tree_leaves(b)]
+            for b in pipe.blocks]
+
+
+def q1_mesh(dev, n_ticks=40, tick=2048, k_virt=4096, n_shards=4, rc_at=16):
+    """Q1 (as ``q1_wordcount``) on a ``n_shards``-shard ``MeshPipeline``
+    (the fast count path), 4 -> 16 instances at tick ``rc_at``: tick for
+    tick the single-device ``VSNPipeline`` on the card and the same mesh on
+    the CPU; one switch moving the tables' bytes, no copy between devices,
+    every shard's block in the same storage across the switch; ms a tick
+    and a profile beside ``VSNPipeline``'s on the same ticks.  Smaller
+    arguments rehearse it on the CPU."""
+    from repro_torch.core import aggregate as agg
+    from repro_torch.core.runtime import VSNPipeline
+    from repro_torch.core.vsn import merge_fast_state
+    from repro_torch.kernels import dispatch
+
+    dev = torch.device(dev)
+    card = dev.type == "cuda"
+    op, batches, rc = q1_setup(k_virt, n_ticks, tick)
+
+    def vsn_pipeline():
+        return VSNPipeline(
+            op, n_max=16, n_active=4, stash_cap=tick,
+            tick_fn=lambda o, s, r, m, explicit_w=None: agg.tick_fast(
+                o, "count", s, r, m, explicit_w=explicit_w),
+            merge_fn=merge_fast_state,
+            init_sigma=functools.partial(agg.fast_init, op), device=dev)
+
+    vsn_rows, vsn_s = eager_rows(vsn_pipeline(), batches, rc, rc_at)
+    t0 = time.perf_counter()
+    cpu_rows, _ = eager_rows(mesh_pipeline(op, n_shards, "cpu",
+                                           stash_cap=tick), batches, rc, rc_at)
+    cpu_seconds = time.perf_counter() - t0
+
+    pipe = mesh_pipeline(op, n_shards, dev, stash_cap=tick)
+    storage = block_storage(pipe)
+    dispatch.reset_launches()
+    rows, seconds = eager_rows(pipe, batches, rc, rc_at)
+    launches = {n: v.launches for n, v in dispatch.registered().items()}
+    for i, (got, want, cpu) in enumerate(zip(rows, vsn_rows, cpu_rows)):
+        if not got == want == cpu:
+            raise AssertionError(f"q1_mesh tick {i}: the mesh, VSNPipeline "
+                                 f"and the CPU mesh differ")
+    sw_ticks = [i for i, r in enumerate(rows) if r[1]]
+    assert len(sw_ticks) == 1, sw_ticks
+    assert sum(1 for r in rows if r[0]) >= 2
+    assert block_storage(pipe) == storage, "a sigma block moved"
+    assert pipe.collective_bytes() == {}
+    assert pipe.switch_bytes() == vsn_pipeline().switch_bytes()
+    assert int(pipe.sg.overflow) == 0
+    assert int(pipe.sigma.collisions) == 0
+    out = dict(phase="q1_mesh", ticks=n_ticks, tick_tuples=tick,
+               k_virt=k_virt, shards=n_shards,
+               devices=[str(d) for d in pipe.mesh.devices],
+               outputs=sum(len(r[0]) for r in rows), switch_tick=sw_ticks[0],
+               equal_to_vsn=True, equal_to_cpu=True,
+               cpu_run_seconds=cpu_seconds, collective_bytes={},
+               switch_table_bytes=pipe.switch_bytes(),
+               block_storage_unchanged=True, launches=launches)
+    if not card:
+        return out
+    assert launches["scalegate_merge"] > 0 and \
+        launches["segment_aggregate"] > 0, launches
+    steady = lambda s: statistics.median(
+        x for i, x in enumerate(s) if i not in (0, *sw_ticks))
+    first = 24
+
+    def profile(pipe):
+        for i in range(first):
+            pipe.step_staged(batches[i], reconfig=rc if i == rc_at else None)
+        torch.cuda.synchronize()
+        return device_profile(lambda i: pipe.step_staged(batches[first + i]),
+                              4, kernel=MERGE_KERNEL_SYMBOL)
+    out.update(
+        mesh=dict(steady_tick_ms=steady(seconds) * 1e3,
+                  reconfig_tick_ms=seconds[sw_ticks[0]] * 1e3,
+                  profile=profile(mesh_pipeline(op, n_shards, dev,
+                                                stash_cap=tick))),
+        vsn=dict(steady_tick_ms=steady(vsn_s) * 1e3,
+                 reconfig_tick_ms=vsn_s[sw_ticks[0]] * 1e3,
+                 profile=profile(vsn_pipeline())))
+    return out
+
+
+def q1_mesh_persistent(dev, n_ticks=40, tick=2048, k_virt=4096, n_shards=4,
+                       k=8, rc_at=19):
+    """Q1 on the mesh (as ``q1_mesh``) through ``run_persistent`` in
+    super-batches of ``k``, the reconfiguration mid-scan (tick 19,
+    ``reconfig_at`` 3): tick for tick the eager mesh run; one graph a
+    physical device and shape, replayed by the later super-batches under
+    ``set_sync_debug_mode("error")``, no node touching host memory;
+    capture and instantiate seconds and ms a tick."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import host_transfer_ops
+
+    dev = torch.device(dev)
+    card = dev.type == "cuda"
+    op, batches, rc = q1_setup(k_virt, n_ticks, tick)
+    want, eager_s = eager_rows(mesh_pipeline(op, n_shards, dev,
+                                             stash_cap=tick),
+                               batches, rc, rc_at)
+    pipe = mesh_pipeline(op, n_shards, dev, stash_cap=tick)
+    storage = block_storage(pipe)
+    dispatch.reset_launches()
+    rows, seconds, overflow = persistent_run(pipe, batches, k, rc, rc_at,
+                                             sync_free=card)
+    launches = {n: v.launches for n, v in dispatch.registered().items()}
+    got = [r[:2] for r in rows]
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            raise AssertionError(f"q1_mesh_persistent tick {i}: differs "
+                                 f"from the eager mesh run")
+    assert sum(r[1] for r in got) == 1 and overflow == 0
+    assert block_storage(pipe) == storage, "a sigma block moved"
+    out = dict(phase="q1_mesh_persistent", ticks=n_ticks, super_batch=k,
+               shards=n_shards, reconfig_tick=rc_at, equal_to_eager=True,
+               outputs=sum(len(r[0]) for r in got), launches=launches)
+    if not card:
+        return out
+    graphs = pipe.persistent_graphs()
+    assert len(graphs) == len(pipe.mesh.groups), list(graphs)
+    assert all(g["replays"] == n_ticks // k - 1 for g in graphs.values())
+    host = host_transfer_ops(graphs)
+    assert host in (0, None), host
+    assert launches["scalegate_merge"] > 0 and \
+        launches["segment_aggregate"] > 0, launches
+    steady_p = [x for j, x in enumerate(seconds) if j not in (0, 2)]
+    steady_e = [x for i, x in enumerate(eager_s) if i not in (0, rc_at)]
+    out.update(
+        host_copies=host, sync_free_replays=True,
+        persistent=dict(steady_tick_ms=statistics.median(steady_p) / k * 1e3,
+                        first_super_batch_s=seconds[0],
+                        reconfig_super_batch_ms=seconds[2] * 1e3),
+        eager=dict(steady_tick_ms=statistics.median(steady_e) * 1e3),
+        graphs=graph_summary(pipe))
+    return out
+
+
+def general_mesh(dev, n_shards=4, k=4, n_ticks=8, rc_at=4):
+    """The general O+ tick at ``live``'s shape (``general_pipeline``: count,
+    K 256, 65 lanes, 16 instances) on a ``n_shards``-shard mesh
+    (``mode="general"``), 2 -> 16 instances at tick ``rc_at``: eager, tick
+    for tick ``VSNPipeline`` on the card and the mesh on the CPU; then
+    through ``run_persistent`` in super-batches of ``k`` (one graph a
+    device, replayed), equal to the eager mesh run; ms a tick and graph
+    nodes.  8 ticks, not ``general_persistent``'s 12: each eager mesh
+    tick is ~0.7 s of host issue on the card."""
+    from repro_torch import api
+    from repro_torch.core.controller import (Reconfiguration, active_mask,
+                                             balanced_fmu)
+    from repro_torch.core.runtime import MeshPipeline
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import make_stream_mesh
+
+    dev = torch.device(dev)
+    card = dev.type == "cuda"
+    batches = general_batches(n_ticks, 32)
+    rc = Reconfiguration(epoch=1, n_active=16, fmu=balanced_fmu(256, 16, 16),
+                         active=active_mask(16, 16))
+    op = api.make_op(api.RuntimeConfig(op="count", wa=500, ws=1000,
+                                       wt="multi", k_virt=256, out_cap=1024,
+                                       extra_slots=2))
+
+    def mesh(device):
+        return MeshPipeline(op, make_stream_mesh(n_shards, device),
+                            stash_cap=32, mode="general", n_max=16,
+                            n_active=2)
+
+    vsn_rows, vsn_s = eager_rows(general_pipeline(dev), batches, rc, rc_at)
+    t0 = time.perf_counter()
+    cpu_rows, _ = eager_rows(mesh("cpu"), batches, rc, rc_at)
+    cpu_seconds = time.perf_counter() - t0
+    dispatch.reset_launches()
+    rows, seconds = eager_rows(mesh(dev), batches, rc, rc_at)
+    for i, (got, want, cpu) in enumerate(zip(rows, vsn_rows, cpu_rows)):
+        if not got == want == cpu:
+            raise AssertionError(f"general_mesh tick {i}: the mesh, "
+                                 f"VSNPipeline and the CPU mesh differ")
+    assert sum(r[1] for r in rows) == 1 and sum(len(r[0]) for r in rows)
+    out = dict(phase="general_mesh", lanes=2 * 32 + 1, instances=16,
+               shards=n_shards,
+               ticks=n_ticks, reconfig_tick=rc_at, equal_to_vsn=True,
+               equal_to_cpu=True, outputs=sum(len(r[0]) for r in rows),
+               cpu_run_seconds=cpu_seconds,
+               eager_ms_per_tick=1e3 * statistics.median(seconds[2:]),
+               vsn_eager_ms_per_tick=1e3 * statistics.median(vsn_s[2:]))
+    if not card:
+        out["launches"] = {n: v.launches
+                           for n, v in dispatch.registered().items()}
+        return out
+    pipe = mesh(dev)
+    prows, pseconds, overflow = persistent_run(pipe, batches, k, rc, rc_at,
+                                               sync_free=True)
+    out["launches"] = {n: v.launches for n, v in dispatch.registered().items()}
+    assert out["launches"]["scalegate_merge"] > 0, out["launches"]
+    if [r[:2] for r in prows] != rows or overflow:
+        raise AssertionError("general_mesh: the graph replays differ from "
+                             "the eager mesh run")
+    graphs = pipe.persistent_graphs()
+    assert len(graphs) == len(pipe.mesh.groups), graphs
+    assert all(g["replays"] == n_ticks // k - 1 for g in graphs.values())
+    # one eager tick past the stream under the profiler (the graph's
+    # operations are its nodes; profiling ~70,000 of them costs a minute)
+    more = general_batches(n_ticks + 1, 32)[n_ticks:]
+    out.update(equal_graph_to_eager=True,
+               persistent_ms_per_tick=1e3 * statistics.median(pseconds[1:])
+               / k, first_call_s=pseconds[0], graphs=graph_summary(pipe),
+               eager_profile=device_profile(
+                   lambda i: pipe.step_staged(more[i]), 1))
+    return out
+
+
+def q3_mesh(dev, n_shards=4, out_cap=4096):
+    """ScaleJoin (as ``q3_scalejoin``: seed 3, band 10 on 2 of 4
+    attributes, K 512, ring 16, 12 ticks of 256) through ``vsn.shard_tick``
+    with ``join_local_tick`` at 1 and ``n_shards`` shards: the same
+    unordered output pairs, the same total comparisons, every shard a
+    share of them."""
+    from repro_torch.core import join, vsn
+    from repro_torch.core.windows import WindowSpec
+    from repro_torch.data import datagen
+    from repro_torch.io.sinks import flatten_outputs
+    from repro_torch.launch.mesh import make_stream_mesh
+
+    K, RING, TICK, N_TICKS, P = 512, 16, 256, 12, 4
+    dev = torch.device(dev)
+    ws = WindowSpec(wa=1, ws=300_000, wt="single")
+    batches = list(datagen.scalejoin(np.random.default_rng(3),
+                                     n_ticks=N_TICKS, tick=TICK, k_virt=1,
+                                     rate_t_per_s=2000.0, device="cpu"))
+    stack = vsn.stack([b.to(dev) for b in batches])
+
+    def run(n):
+        mesh = make_stream_mesh(n, dev)
+        sigma = dataclasses.replace(join.fast_join_init(K, RING, P, dev),
+                                    comparisons=torch.zeros((n,),
+                                                            device=dev))
+        step = vsn.shard_tick(mesh, K, vsn.join_local_tick(
+            ws, join.band_predicate(10.0, 2), K, out_cap))
+        t0 = time.perf_counter()
+        blocks, outs = step(vsn.mesh_device_put(sigma, mesh, K), stack)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        comps = vsn.mesh_gather(blocks, vsn.mesh_state_spec(sigma, K),
+                                dev).comparisons
+        pairs = []
+        for tau, pay in flatten_outputs(outs):
+            half = len(pay) // 2
+            pairs.append((tau, tuple(sorted([pay[:half], pay[half:]]))))
+        assert int(outs.overflow.sum()) == 0
+        return sorted(pairs), comps.cpu().tolist(), seconds
+
+    from repro_torch.kernels import dispatch
+    dispatch.reset_launches()
+    one, c1, s1 = run(1)
+    many, cn, sn = run(n_shards)
+    launches = {n: v.launches for n, v in dispatch.registered().items()}
+    if one != many:
+        raise AssertionError("q3_mesh: the pairs differ between 1 and "
+                             f"{n_shards} shards")
+    assert sum(cn) == sum(c1) and all(c > 0 for c in cn), (c1, cn)
+    return dict(phase="q3_mesh", ticks=N_TICKS, k_virt=K, ring=RING,
+                shards=n_shards, output_pairs=len(one), comparisons=sum(c1),
+                comparisons_by_shard=cn, seconds={"1": s1,
+                                                  str(n_shards): sn},
+                pairs_equal=True, launches=launches)
+
+
+def q1_mesh_recovery(dev, n_ticks=40, tick=2048, k_virt=4096, n_shards=4,
+                     crash_after=28, again=2):
+    """``launch.recovery.kill_restore_drill`` at ``q1_recovery``'s
+    configuration (Q1 over the tier: 8 sources, 4 thread leaves, the fused
+    root, ``super_batch`` 8, a checkpoint every 8 ticks) on a
+    ``n_shards``-shard mesh, a torn newer save planted: exact parity.
+    Then the restored step restored once more onto ``again`` shards: its
+    replay equals the uninterrupted run's outputs from that step on."""
+    import tempfile
+
+    from repro_torch import api
+    from repro_torch.checkpoint import stream as ckstream
+    from repro_torch.checkpoint.checkpoint import Checkpointer
+    from repro_torch.data import datagen
+    from repro_torch.io.sources import ReplaySource
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.recovery import kill_restore_drill
+
+    N_SRC, N_LEAVES, K8 = 8, 4, 8
+    dev = torch.device(dev)
+    batches = list(datagen.tweets(
+        np.random.default_rng(7), n_ticks=n_ticks, tick=tick,
+        words_per_tweet=6, vocab=50000, k_virt=k_virt, rate_per_tick=200,
+        n_sources=N_SRC, device="cpu"))
+    with tempfile.TemporaryDirectory() as ckdir:
+        cfg = api.RuntimeConfig(
+            op="count", wa=1000, ws=2000, wt="multi", k_virt=k_virt,
+            out_cap=4096, extra_slots=2, n_max=16, n_active=4,
+            stash_cap=tick, mesh_devices=n_shards, device=str(dev),
+            n_sources=N_SRC, ingest_hosts=N_LEAVES, ingest_worker="thread",
+            leaf_cap=tick, root_cap=2 * tick, out_pad=tick,
+            root_device=True, queue_cap=4, super_batch=K8,
+            checkpoint_dir=ckdir, checkpoint_every=K8)
+        dispatch.reset_launches()
+        oracle = api.build_runtime(
+            dataclasses.replace(cfg, checkpoint_dir=None, checkpoint_every=0),
+            ReplaySource(batches, n_inputs=N_SRC))
+        oracle.run()
+        want = oracle.sink.results()
+        t0 = time.perf_counter()
+        rep = kill_restore_drill(cfg, batches, mode="stop",
+                                 crash_after=crash_after, crash_mid_save=True,
+                                 oracle=want)
+        drill_s = time.perf_counter() - t0
+        assert rep.parity, rep.summary()
+        step = rep.restored_step
+        assert step > 0, rep.summary()
+
+        ck = Checkpointer(ckdir)
+        extra = ck.manifest(step)["extra"]
+        rcfg = dataclasses.replace(api.RuntimeConfig.from_json(
+            extra["config"]), mesh_devices=again, checkpoint_dir=None,
+            checkpoint_every=0)
+        pipe = api.make_pipeline(rcfg)
+        like = ckstream.like_tree(
+            pipe, extra, n_sources=rcfg.n_sources, leaf_cap=rcfg.leaf_cap,
+            root_cap=rcfg.root_cap, max_leaves=rcfg.effective_max_leaves,
+            out_pad=rcfg.out_pad, root_device=rcfg.root_device)
+        tree = ck.restore(step, like)
+        restored = api.build_runtime(
+            rcfg, ReplaySource(batches, n_inputs=N_SRC).from_tick(
+                int(extra["source_ticks"])), pipeline=pipe,
+            restore={"pipe": tree["pipe"], "tick0": step,
+                     "tier": ckstream.tier_restore_dict(tree,
+                                                        extra["tier"])})
+        restored.run()
+        launches = {n: v.launches for n, v in dispatch.registered().items()}
+    if restored.sink.results() != oracle.sink.results(since_tick=step):
+        raise AssertionError(f"q1_mesh_recovery: the snapshot restored on "
+                             f"{again} shards replays other outputs")
+    if dev.type == "cuda":
+        for name in ("scalegate_merge", "scalegate_merge_stacked",
+                     "segment_aggregate"):
+            assert launches[name] > 0, launches
+    return dict(phase="q1_mesh_recovery", ticks=n_ticks, tick_tuples=tick,
+                shards=n_shards, super_batch=K8, checkpoint_every=K8,
+                crash_after=crash_after, restored_step=step,
+                parity=True, detect_to_recover_ms=rep.detect_to_recover_ms,
+                committed=rep.n_committed, replayed=rep.n_replayed,
+                outputs=rep.n_oracle, drill_seconds=drill_s,
+                restored_again_on_shards=again, again_equal=True,
+                launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the stream launchers on the card (elastic_drill, live)
 # ---------------------------------------------------------------------------
 
 # Runs a launcher's ``main`` in a process of its own, as ``python -m``
@@ -2451,8 +2859,8 @@ LAUNCHER = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
             "dispatch.registered().items()})); sys.exit(rc)")
 
 # the reference's summary lines each launcher prints
-LAUNCHER_LINES = ("# device", "[1]", "[2]", "[3]", "[4]", "[5]", "[6]", "[6k]",
-                  "[live", "elastic drill OK", "live run OK",
+LAUNCHER_LINES = ("# device", "[1]", "[1m]", "[2]", "[3]", "[4]", "[5]", "[6]",
+                  "[6k]", "[live", "elastic drill OK", "live run OK",
                   "live resume OK")
 
 
@@ -2503,9 +2911,11 @@ def launchers(dev, drills="straggler,live,ingest,serving,crash,recovery,"
     with the oracle, checkpoints and a recording followed by ``live
     --resume`` replaying it, each in a process of its own on the card, and
     the same ``live`` run on the CPU, whose output count the card's must
-    equal; and ``live --super-batch 4`` (8 ticks of 32), the general tick
-    in the persistent driver's graphs, equal to its oracle.  Nothing is
-    cut (``--drill-times`` times each drill alone)."""
+    equal; ``live --super-batch 4`` (8 ticks of 32), the general tick
+    in the persistent driver's graphs, equal to its oracle; and the
+    stream mesh: ``live --mesh 4`` at 24 ticks of 256 with its oracle and
+    ``elastic_drill --drills mesh --mesh 4``.  Nothing is cut
+    (``--drill-times`` times each drill alone)."""
     import concurrent.futures
     import tempfile
 
@@ -2513,7 +2923,7 @@ def launchers(dev, drills="straggler,live,ingest,serving,crash,recovery,"
     # the launchers' own default is the card; the CPU rehearsal asks
     where = [] if dev.type == "cuda" else ["--device", "cpu"]
     with tempfile.TemporaryDirectory() as d, \
-            concurrent.futures.ThreadPoolExecutor(4) as pool:
+            concurrent.futures.ThreadPoolExecutor(6) as pool:
         ck, rec = str(pathlib.Path(d) / "ck"), str(pathlib.Path(d) /
                                                     "stream.npz")
         size = ["--ticks", str(live_ticks), "--tick", str(live_tick), *where]
@@ -2543,7 +2953,15 @@ def launchers(dev, drills="straggler,live,ingest,serving,crash,recovery,"
                             ["--ticks", str(live_ticks), "--tick",
                              str(live_tick), "--oracle", "--device", "cpu"],
                             600)
-        runs = [drill_f.result(), *live_f.result(), super_f.result()]
+        # the stream mesh: live on 4 shards (the fast count path) with its
+        # oracle, and the mesh drill
+        mesh_live_f = pool.submit(run_launcher, "live",
+                                  [*size, "--oracle", "--mesh", "4"], 600)
+        mesh_drill_f = pool.submit(run_launcher, "elastic_drill",
+                                   ["--drills", "mesh", "--mesh", "4",
+                                    *where], 600)
+        runs = [drill_f.result(), *live_f.result(), super_f.result(),
+                mesh_live_f.result(), mesh_drill_f.result()]
         cpu_run = cpu_f.result()
     text = "\n".join(ln for r in runs for ln in r["summary"])
     for want in ("[1] straggler drain: outputs identical=True",
@@ -2554,6 +2972,12 @@ def launchers(dev, drills="straggler,live,ingest,serving,crash,recovery,"
                  "elastic drill OK", "outputs match static oracle = True",
                  "live run OK", "live resume OK"):
         assert want in text, (want, text)
+    mesh_line = re.search(r"\[1m\] mesh straggler drain on 4 shards: "
+                          r"outputs identical=True, reconfigs=1, "
+                          r"cross-shard state transfer=0 B", text)
+    assert mesh_line, text
+    assert "outputs match static oracle = True" in \
+        "\n".join(runs[4]["summary"]), runs[4]["summary"]
     restored = re.search(r"restored step (\d+)", text)
     assert restored and int(restored.group(1)) > 0, text
     count = re.compile(r"static oracle = True \((\d+) output tuples")
@@ -2575,7 +2999,7 @@ def launchers(dev, drills="straggler,live,ingest,serving,crash,recovery,"
 
 
 # ---------------------------------------------------------------------------
-# phases 10-13: the elastic serving tier at full width (qwen3-14b,
+# phases 15-18: the elastic serving tier at full width (qwen3-14b,
 # rwkv6-7b, deepseek-moe-16b, hymba-1.5b)
 # ---------------------------------------------------------------------------
 
@@ -3059,7 +3483,8 @@ def main(argv) -> int:
     # card run and reads them right after it.
     phases = []
     for run in (q1_wordcount, q3_scalejoin, q1_persistent, q3_persistent,
-                q1_ingest_tier, q1_recovery, launchers,
+                q1_ingest_tier, q1_recovery, q1_mesh, q1_mesh_persistent,
+                general_mesh, q3_mesh, q1_mesh_recovery, launchers,
                 functools.partial(serve_full_width, arch="qwen3-14b"),
                 functools.partial(serve_full_width, arch="rwkv6-7b"),
                 functools.partial(serve_full_width, arch="deepseek-moe-16b"),

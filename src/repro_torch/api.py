@@ -23,10 +23,12 @@ reference's, so a directory either package wrote resumes in the other.
 card); the serving engine runs there too unless ``ServingConfig.device``
 names another device.  ``super_batch > 1`` runs the pipeline's persistent
 K-tick driver (a CUDA graph per super-batch shape on the card, which
-refuses a tick function that cannot be captured).  Not ported yet, and
-refused by ``make_pipeline``: the device mesh (``mesh_devices``).  The
-reference's ``backend`` switch has no counterpart: the port picks a kernel
-by the data's device.
+refuses a tick function that cannot be captured).  ``mesh_devices = N``
+builds a ``MeshPipeline`` over ``launch.mesh.make_stream_mesh(N,
+device)``: N key-block shards round-robin over the visible devices of
+``device``'s type, driven by this one process (all N on the one card
+there is).  The reference's ``backend`` switch has no counterpart: the
+port picks a kernel by the data's device.
 """
 
 from __future__ import annotations
@@ -140,12 +142,17 @@ def make_pipeline(cfg: RuntimeConfig):
                                       n_inputs=max(cfg.n_sources, 1),
                                       n_active=cfg.n_active,
                                       device=cfg.device)
+    from repro_torch.core.runtime import MeshPipeline, VSNPipeline
+    op = make_op(cfg)
     if cfg.mesh_devices:
-        raise NotImplementedError(
-            "mesh_devices: MeshPipeline is not ported yet (ROADMAP.md "
-            "queue 1 item 8)")
-    from repro_torch.core.runtime import VSNPipeline
-    return VSNPipeline(make_op(cfg), n_max=cfg.n_max, n_active=cfg.n_active,
+        from repro_torch.launch.mesh import make_stream_mesh
+        mode = "fast-agg" if cfg.op == "count" else "general"
+        return MeshPipeline(op, make_stream_mesh(cfg.mesh_devices,
+                                                 cfg.device),
+                            stash_cap=cfg.stash_cap, mode=mode,
+                            agg_kind="count", n_max=cfg.n_max,
+                            n_active=cfg.n_active)
+    return VSNPipeline(op, n_max=cfg.n_max, n_active=cfg.n_active,
                        stash_cap=cfg.stash_cap, device=cfg.device)
 
 

@@ -122,13 +122,17 @@ def fast_init(op: OperatorDef, device=None) -> FastAggState:
         collisions=torch.zeros((), dtype=torch.int32, device=dev))
 
 
-def _hits(op: OperatorDef, kind: str, ready: T.TupleBatch, next_l):
+def _hits(op: OperatorDef, kind: str, ready: T.TupleBatch, next_l,
+          key_offset: int = 0):
     """The tick's (key, slot) hits, independent of the instance: ``(k, s,
     l, m_pre, m_any, val)``, one row per (window generation d, key column,
-    lane), in that order.  ``m_pre`` marks live in-range hits of a key in
-    ``[0, K)`` seen first in its tuple's key set (Definition 4: ``f_MK``
-    returns a set); ``m_any`` the lanes in window range irrespective of key
-    (the slot-grid bookkeeping mask); ``val`` the value each row adds."""
+    lane), in that order.  ``k`` is the row in the key block ``[key_offset,
+    key_offset + K)``; ``m_pre`` marks live in-range hits of a key in that
+    block seen first in its tuple's key set (Definition 4: ``f_MK`` returns
+    a set; a key outside the block is dropped like ``NO_KEY``); ``m_any``
+    the lanes in window range irrespective of key (the slot-grid
+    bookkeeping mask, the same on every mesh shard); ``val`` the value each
+    row adds."""
     ws = op.window
     dev = ready.device
     live = ready.valid & ~ready.is_control
@@ -139,12 +143,13 @@ def _hits(op: OperatorDef, kind: str, ready: T.TupleBatch, next_l):
     earlier = torch.ones((ready.kmax, ready.kmax), dtype=torch.bool,
                          device=dev).tril(-1)[:, :, None]
     dup = ((keys[:, None] == keys[None]) & earlier).any(dim=1)
-    in_block = (keys >= 0) & (keys < op.k_virt) & ~dup
+    local = keys - key_offset
+    in_block = (keys >= 0) & (local >= 0) & (local < op.k_virt) & ~dup
     l = l_min + torch.arange(n_d, dtype=torch.int32, device=dev)[:, None]
     in_range = (l <= l_max) & live                           # [D, B]
     shape = (n_d, ready.kmax, ready.batch)
     l = l[:, None].expand(shape).reshape(-1)
-    k = keys.clamp(0, op.k_virt - 1)[None].expand(shape).reshape(-1)
+    k = local.clamp(0, op.k_virt - 1)[None].expand(shape).reshape(-1)
     m_pre = (in_range[:, None] & in_block[None]).reshape(-1)
     m_any = in_range[:, None].expand(shape).reshape(-1)
     reps = n_d * ready.kmax
@@ -183,7 +188,8 @@ def _scatter_reduce(op: OperatorDef, kind: str, acc: torch.Tensor,
     return _apply_hits(kind, acc, k, s, m, val), k, s, l, m, m_any
 
 
-def _plan(op: OperatorDef, kind: str, st: FastAggState, ready: T.TupleBatch):
+def _plan(op: OperatorDef, kind: str, st: FastAggState, ready: T.TupleBatch,
+          key_offset: int = 0):
     """Everything of a fast tick that does not depend on the instance: the
     first-contact frontier, the watermark, the hits, the ring-overrun
     count, the slot table and the expiry's plan."""
@@ -196,7 +202,7 @@ def _plan(op: OperatorDef, kind: str, st: FastAggState, ready: T.TupleBatch):
     first_tau = torch.where(live, ready.tau, INT32_MAX).min()
     next_l = torch.where((ops.next_l == UNSET_L) & any_live,
                          op.window.earliest_win_l(first_tau), ops.next_l)
-    k, s, l, m_pre, m_any, val = _hits(op, kind, ready, next_l)
+    k, s, l, m_pre, m_any, val = _hits(op, kind, ready, next_l, key_offset)
 
     # Ring overrun: the live window generations spanned by this tick must
     # fit the slot ring, else two generations alias one slot (counted).
@@ -211,7 +217,8 @@ def _plan(op: OperatorDef, kind: str, st: FastAggState, ready: T.TupleBatch):
     has = torch.zeros((op.slots,), dtype=torch.int32, device=dev)
     has = has.scatter_reduce(0, s_long, m_any.to(torch.int32), reduce="amax")
     slot_l = torch.where(has > 0, hit_l, st.slot_l)
-    key_ids = torch.arange(op.k_virt, dtype=torch.int32, device=dev)
+    key_ids = key_offset + torch.arange(op.k_virt, dtype=torch.int32,
+                                        device=dev)
     return dict(next_l=next_l, w_end=w_end, k=k, k_long=k.long(), s=s,
                 m_pre=m_pre, val=val, flat=k.long() * op.slots + s_long,
                 coll=coll, slot_l=slot_l, key_ids=key_ids,
@@ -220,17 +227,21 @@ def _plan(op: OperatorDef, kind: str, st: FastAggState, ready: T.TupleBatch):
 
 def tick_fast(op: OperatorDef, kind: str, st: FastAggState,
               ready: T.TupleBatch, resp: torch.Tensor, *,
-              explicit_w=None) -> Tuple[FastAggState, Outputs]:
+              explicit_w=None,
+              key_offset: int = 0) -> Tuple[FastAggState, Outputs]:
     """Whole-tick scatter update, then expiry (order-free for commutative f_R).
 
     The part that does not depend on ``resp`` is computed once for all the
     VSN instances of a tick (``operator.shared``); each instance then
     applies its hits and expires its keys.  ``explicit_w`` (SN only) is the
     end-of-tick watermark broadcast to every instance whatever was routed
-    to it (see ``operator.advance_explicit``).
+    to it (see ``operator.advance_explicit``).  ``key_offset`` runs the
+    tick on a mesh shard's key block ``[key_offset, key_offset + K)``
+    (``op.k_virt`` is the block's width): keys outside it are dropped, and
+    the emitted key ids stay global.
     """
-    plan = shared((tick_fast, op, kind, st, ready),
-                  lambda: _plan(op.resolved(), kind, st, ready))
+    plan = shared((tick_fast, op, kind, st, ready, key_offset),
+                  lambda: _plan(op.resolved(), kind, st, ready, key_offset))
     op = op.resolved()
     ops = st.op_state
     m = plan["m_pre"] & resp[plan["k_long"]]
@@ -244,6 +255,7 @@ def tick_fast(op: OperatorDef, kind: str, st: FastAggState,
     ops, outs = expire_closed(op, ops, plan["w_end"], resp, plan["key_ids"],
                               plan["expiry"])
     if explicit_w is not None:
-        ops, outs = advance_explicit(op, ops, outs, explicit_w, resp)
+        ops, outs = advance_explicit(op, ops, outs, explicit_w, resp,
+                                     key_offset)
     return FastAggState(op_state=ops, slot_l=plan["slot_l"],
                         collisions=plan["coll"]), outs

@@ -8,9 +8,9 @@ instance compares incoming tuples with the tuples stored under its keys.
 Two paths: ``scalejoin_def`` on the general ``operator.tick`` (the semantic
 oracle) and ``tick_fast``, the blocked whole-tick compare.
 ``band_join_counts`` is the counting-only compare through the
-``window_join`` kernel.  Only the monolithic layout (all K rows, ``resp``
-masks) is ported here; the reference's sliced mesh layout
-(``k_global``/``k_offset``) comes with the mesh slice.
+``window_join`` kernel.  ``tick_fast`` has the reference's two layouts:
+monolithic (all K rows, ``resp`` masks) and sliced (``k_global`` /
+``k_offset``: one mesh shard's contiguous row block).
 """
 
 from __future__ import annotations
@@ -157,27 +157,38 @@ def band_join_counts(st: FastJoinState, ready: T.TupleBatch,
 
 def tick_fast(window: WindowSpec, f_j: Callable, st: FastJoinState,
               ready: T.TupleBatch, resp: torch.Tensor, out_cap: int,
-              emit: bool = True) -> Tuple[FastJoinState, Outputs]:
+              emit: bool = True, k_global: int = None,
+              k_offset: int = 0) -> Tuple[FastJoinState, Outputs]:
     """Whole-tick ScaleJoin: block compare + in-block triangle + store.
 
-    ``st`` holds all K rows and ``resp`` masks this instance's rows.
-    Requires ``ready.batch <= K`` (one store row per tuple per tick).
+    Monolithic (the default): ``st`` holds all K rows and ``resp`` masks
+    this instance's rows.  Sliced (``k_global`` set): ``st`` holds the rows
+    ``[k_offset, k_offset + K)`` of a ``k_global``-row store, the
+    owner-computes layout of ``vsn.shard_tick``; a tuple is stored, and
+    its in-block pairs counted, by the shard whose block holds its store
+    key ``(c + rank) % k_global``, so every pair is compared once.
+    Requires ``ready.batch <= k_global`` (one store row per tuple per
+    tick).
+
     Outputs are appended in the reference's order: phase-1 hits by
     ``(b, k, r)``, then phase-2 hits by ``(later, earlier)``, through one
     fixed-size emission (``operator.compact``): no shape depends on the
     data and nothing is read back to the host.
     """
     k_virt, ring = st.tau.shape
+    kg = k_virt if k_global is None else k_global
     b = ready.batch
     p = ready.payload.shape[-1]
     dev = ready.device
-    if b > k_virt:
+    if b > kg:
         raise ValueError("the fast path stores at most one tuple per key per "
-                         f"tick: batch {b} > K {k_virt}")
+                         f"tick: batch {b} > K {kg}")
     live_in = ready.valid & ~ready.is_control
     li = live_in.to(torch.int32)
     rank = torch.cumsum(li, 0, dtype=torch.int32) - li
-    store_key = ((st.c + rank) % k_virt).long()
+    store_g = (st.c + rank) % kg                         # global key ids
+    in_slice = (store_g >= k_offset) & (store_g < k_offset + k_virt)
+    store_key = (store_g - k_offset).clamp(0, k_virt - 1).long()
 
     # --- phase 1: incoming block vs stored rings (resp rows only) ---------
     fresh = st.tau[None] + window.ws >= ready.tau[:, None, None]
@@ -190,7 +201,7 @@ def tick_fast(window: WindowSpec, f_j: Callable, st: FastJoinState,
     ii = torch.arange(b, device=dev)
     earlier = ii[None, :] < ii[:, None]                  # j earlier than i
     cross = ready.source[:, None] != ready.source[None, :]
-    owner = resp[store_key]                              # owner of earlier tuple
+    owner = resp[store_key] & in_slice                   # owner of earlier tuple
     pair = (earlier & cross & owner[None, :] & live_in[:, None]
             & live_in[None, :])
     comps2 = pair.sum()
@@ -222,10 +233,12 @@ def tick_fast(window: WindowSpec, f_j: Callable, st: FastJoinState,
             torch.cat([ready.payload[left], right], dim=-1))
 
     # --- phase 3: store (round-robin, one key per tuple) -------------------
-    # Non-live lanes go to one past the end, which _put and index_add drop.
+    # Lanes this block does not store (not live, or another shard's key) go
+    # to one past the end, which _put and index_add drop.
     pos = (st.n[store_key] % ring).long()
-    row = torch.where(live_in, store_key, k_virt)
-    cell = torch.where(live_in, store_key * ring + pos, k_virt * ring)
+    mine = live_in & in_slice
+    row = torch.where(mine, store_key, k_virt)
+    cell = torch.where(mine, store_key * ring + pos, k_virt * ring)
 
     def store(a, v):
         flat = a.reshape((k_virt * ring,) + a.shape[2:])

@@ -605,21 +605,25 @@ EMIT_CHUNK = 32
 
 def tick_instances(op: OperatorDef, st: OpState, ready: T.TupleBatch,
                    resp: torch.Tensor, *, live: torch.Tensor = None,
-                   explicit_w=None, stacked: bool = False):
+                   explicit_w=None, stacked: bool = False,
+                   key_offset: int = 0):
     """The general tick (Alg. 2, one ready tuple at a time) for ``n``
     instances in one pass: the reference's ``vmap`` of its ``lax.scan``.
 
-    ``resp`` is bool ``[n, K]``.  ``st`` is one state every instance starts
-    from (VSN: it is only read) or, ``stacked``, one a row (SN).  ``live``
-    (bool ``[n, B]``) is each instance's queue, default ``ready.valid &
-    ~ready.is_control`` for all.  Returns ``(state [n, ...], outputs [n,
-    ...])``.  The watermark and window frontier of every lane come from
-    prefix maxima over the sorted batch, and with them every lane's
-    expiry plan and window range; the lanes then run in order, each a
-    fixed set of tensor operations, and their output rows are appended
-    ``EMIT_CHUNK`` lanes at a time.  Inside a CUDA graph capture nothing
-    is read back to the host; run eagerly, the tick reads the most rounds
-    due where a bounded expiry could not be exact (``_plan``).
+    ``resp`` is bool ``[n, K]``.  ``st`` is one state every instance
+    starts from (VSN: it is only read) or, ``stacked``, one a row (SN).
+    ``live`` (bool ``[n, B]``) is each instance's queue, default
+    ``ready.valid & ~ready.is_control`` for all.  ``key_offset`` runs the
+    tick on the key block ``[key_offset, key_offset + K)`` of a mesh
+    shard: tuple keys outside it hit nothing, and the key ids ``f_O``
+    sees stay global.  Returns ``(state [n, ...], outputs [n, ...])``.
+    The watermark and window frontier of every lane come from prefix
+    maxima over the sorted batch, and with them every lane's expiry plan
+    and window range; the lanes then run in order, each a fixed set of
+    tensor operations, and their output rows are appended ``EMIT_CHUNK``
+    lanes at a time.  Inside a CUDA graph capture nothing is read back to
+    the host; run eagerly, the tick reads the most rounds due where a
+    bounded expiry could not be exact (``_plan``).
     """
     op = op.resolved()
     ws = op.window
@@ -633,7 +637,7 @@ def tick_instances(op: OperatorDef, st: OpState, ready: T.TupleBatch,
     z = _slot_major(st.zeta, n, stacked)
     occ = _slot_major({"o": st.occupied}, n, stacked)["o"]
     fresh = {name: a.transpose(0, 1) for name, a in op.init_zeta(dev).items()}
-    key_ids = torch.arange(k, **i32)
+    key_ids = key_offset + torch.arange(k, **i32)
     buf = _Buf.empty(n, op.out_cap, op.payload_out, dev)
     faults = []
 
@@ -663,8 +667,9 @@ def tick_instances(op: OperatorDef, st: OpState, ready: T.TupleBatch,
         s_u = (l_u % op.slots).long()
         act_u = l_u <= l_max[..., None]
         taus = [ws.right_of(g) for g, _ in passes] + [ws.right_of(l_u)]
-        kidx = torch.where((ready.keys >= 0) & (ready.keys < k), ready.keys,
-                           k).long()
+        local = ready.keys - key_offset
+        kidx = torch.where((ready.keys >= 0) & (local >= 0) & (local < k),
+                           local, k).long()
         hit = torch.zeros((b, k + 1), dtype=torch.bool, device=dev).scatter_(
             1, kidx, True)[:, :k]
         pend = []
@@ -741,14 +746,16 @@ def _expire_emit(op: OperatorDef, z, occ, m, c, resp, key_ids, fresh,
 
 
 def tick(op: OperatorDef, st: OpState, ready: T.TupleBatch,
-         resp: torch.Tensor, explicit_w=None) -> Tuple[OpState, Outputs]:
+         resp: torch.Tensor, explicit_w=None,
+         key_offset: int = 0) -> Tuple[OpState, Outputs]:
     """One instance's general tick (``tick_instances`` with one row).
 
     ``explicit_w`` models explicit watermark propagation (§2.3), which SN
-    needs when an instance's queue runs dry.
+    needs when an instance's queue runs dry.  ``key_offset``: the mesh
+    shard's key block (see ``tick_instances``).
     """
     state, outs = tick_instances(op, st, ready, resp[None],
-                                 explicit_w=explicit_w)
+                                 explicit_w=explicit_w, key_offset=key_offset)
     one = lambda a: a[0]
     return (OpState(zeta={nm: one(a) for nm, a in state.zeta.items()},
                     occupied=one(state.occupied), next_l=one(state.next_l),
@@ -758,11 +765,11 @@ def tick(op: OperatorDef, st: OpState, ready: T.TupleBatch,
 
 
 def advance_explicit(op: OperatorDef, st: OpState, outs: Outputs,
-                     explicit_w, resp: torch.Tensor):
+                     explicit_w, resp: torch.Tensor, key_offset: int = 0):
     """Explicit watermark at the end of a tick (§2.3): an end-of-tick
     watermark reaches the instance whatever was routed to it, and the
     windows it closes are expired (bounded, as the general tick's), their
-    rows appended to ``outs``."""
+    rows appended to ``outs`` (key ids from ``key_offset``)."""
     op = op.resolved()
     w = torch.maximum(st.watermark, torch.as_tensor(
         explicit_w, dtype=torch.int32, device=st.watermark.device))
@@ -771,7 +778,8 @@ def advance_explicit(op: OperatorDef, st: OpState, outs: Outputs,
     st = dataclasses.replace(st, watermark=w, next_l=torch.maximum(start, e))
     if op.lazy_expiry:
         return st, outs
-    key_ids = torch.arange(op.k_virt, dtype=torch.int32, device=resp.device)
+    key_ids = key_offset + torch.arange(op.k_virt, dtype=torch.int32,
+                                        device=resp.device)
     fresh = {name: a.transpose(0, 1)
              for name, a in op.init_zeta(resp.device).items()}
     buf = _Buf.of(outs)

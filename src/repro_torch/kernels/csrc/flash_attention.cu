@@ -88,6 +88,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "per_device.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -867,8 +868,10 @@ int launch_f32(Params p, int batch, cudaStream_t stream) {
   const int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
   auto kernel = rows_aligned(p, D, 4) ? flash_f32_kernel<D, true>
                                       : flash_f32_kernel<D, false>;
-  static const int set = allow_smem(flash_f32_kernel<D, true>, smem) |
-                         allow_smem(flash_f32_kernel<D, false>, smem);
+  const int set = repro::once_per_device([smem] {
+    return allow_smem(flash_f32_kernel<D, true>, smem) |
+           allow_smem(flash_f32_kernel<D, false>, smem);
+  });
   if (set) return set;
   const int n_rows = p.n_rep * p.len_q;
   const unsigned grid = grid_x(p, (n_rows + kBQ - 1) / kBQ, batch);
@@ -882,7 +885,8 @@ int launch_bf16(Params p, int batch, cudaStream_t stream) {
   const int n_rows = p.n_rep * p.len_q;
   if (n_rows <= kDecRows) {
     constexpr int smem = Dec<D>::SMEM;
-    static const int set = allow_smem(flash_decode_kernel<D>, smem);
+    const int set = repro::once_per_device(
+        [] { return allow_smem(flash_decode_kernel<D>, Dec<D>::SMEM); });
     if (set) return set;
     const unsigned grid = grid_x(p, p.n_split, batch);
     if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -902,7 +906,8 @@ int launch_bf16(Params p, int batch, cudaStream_t stream) {
     if (e != cudaSuccess) return static_cast<int>(e);
   } else {
     constexpr int smem = Pre<D>::SMEM;
-    static const int set = allow_smem(flash_prefill_kernel<D>, smem);
+    const int set = repro::once_per_device(
+        [] { return allow_smem(flash_prefill_kernel<D>, Pre<D>::SMEM); });
     if (set) return set;
     const unsigned grid = grid_x(p, (n_rows + kPreRows - 1) / kPreRows,
                                  batch);

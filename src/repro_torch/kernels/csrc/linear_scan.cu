@@ -65,6 +65,8 @@
 
 #include <cuda_runtime.h>
 
+#include "per_device.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;
@@ -546,11 +548,14 @@ int launch_sequential(const Args& a) {
 template <int DK, int C>
 int launch_chunked(const Args& a) {
   constexpr int smem = Chunked<DK, C>::SMEM;
-  static const cudaError_t set =
+  const cudaError_t set =
       smem > 48 * 1024
-          ? cudaFuncSetAttribute(linear_scan_chunked_kernel<DK, C>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem)
+          ? repro::once_per_device([] {
+              return cudaFuncSetAttribute(
+                  linear_scan_chunked_kernel<DK, C>,
+                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                  Chunked<DK, C>::SMEM);
+            })
           : cudaSuccess;
   if (set != cudaSuccess) return static_cast<int>(set);
   const dim3 grid(a.bh, (a.dv + kTileJ - 1) / kTileJ);

@@ -65,6 +65,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "per_device.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
@@ -728,10 +730,10 @@ scalegate_tile_merge_kernel(Key* __restrict__ keys_g, long long n_pad,
 // launchers
 // ---------------------------------------------------------------------------
 
-// The kernels' function attributes, set once per process (a function-local
-// static is initialised once, thread-safely); the first error, if any.
+// The kernels' function attributes, set once per device (they belong to
+// the current device); the first error, if any.
 cudaError_t set_attributes() {
-  static const cudaError_t err = [] {
+  return repro::once_per_device([] {
     cudaError_t e = cudaFuncSetAttribute(
         scalegate_cluster_kernel,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kClusterSmem);
@@ -751,8 +753,7 @@ cudaError_t set_attributes() {
                                kTileSmem);
     }
     return e;
-  }();
-  return err;
+  });
 }
 
 cudaLaunchConfig_t cluster_config(int cluster, cudaLaunchAttribute* attr,

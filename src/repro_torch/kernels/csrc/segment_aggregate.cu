@@ -50,6 +50,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "per_device.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -202,13 +204,14 @@ segment_aggregate_global_kernel(const int32_t* __restrict__ keys,
                      (warp_id * 32 + (threadIdx.x & 31)) * 4));
 }
 
-// The cluster kernel's function attribute, set once per process (a
-// function-local static is initialised once, thread-safely).
+// The cluster kernel's function attribute, set once per device (it
+// belongs to the current device).
 cudaError_t set_attributes() {
-  static const cudaError_t err = cudaFuncSetAttribute(
-      segment_aggregate_cluster_kernel,
-      cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  return err;
+  return repro::once_per_device([] {
+    return cudaFuncSetAttribute(segment_aggregate_cluster_kernel,
+                                cudaFuncAttributeNonPortableClusterSizeAllowed,
+                                1);
+  });
 }
 
 bool aligned16(const void* p) {

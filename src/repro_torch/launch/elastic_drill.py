@@ -23,8 +23,11 @@ Pipelines, tiers, and runtimes are built through ``repro_torch.api``
 (``RuntimeConfig`` + ``build_runtime``), the same path the checkpoint
 manifests serialize.
 
-``--mesh N`` and ``--drills mesh`` need the mesh, which is not ported yet:
-they are refused (``NotImplementedError``, ROADMAP.md queue 1 item 8).
+``--mesh N`` additionally (or with ``--drills mesh``, exclusively) runs
+drill 1 on an N-shard stream mesh (default 8 shards; on one card they
+time-share it): the epoch switch happens mid-stream, the outputs equal the
+single-device run's, and the steps copy no state between shards' devices
+(``MeshPipeline.collective_bytes``).
 
 ``--live`` (or ``--drills live``) runs the closed loop end to end: the
 async runtime streams a rate trace whose spike makes the
@@ -79,7 +82,7 @@ def base_cfg(k: int, device=None) -> api.RuntimeConfig:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mesh", type=int, default=0,
-                    help="also run the straggler drill on an N-device mesh")
+                    help="also run the straggler drill on an N-shard mesh")
     ap.add_argument("--live", action="store_true",
                     help="also run the closed-loop live-runtime drill")
     ap.add_argument("--drills", default="straggler,serving,crash,recovery",
@@ -97,10 +100,6 @@ def main(argv=None):
         drills.add("mesh")
     if args.live:
         drills.add("live")
-    if "mesh" in drills:
-        raise NotImplementedError(
-            "the mesh drill: MeshPipeline is not ported yet (ROADMAP.md "
-            "queue 1 item 8)")
 
     if not args.obs_dump:
         return run_drills(args, drills)
@@ -164,8 +163,10 @@ def run_drills(args, drills):
             outs += collect(o1) + collect(o2)
         return outs, pipe
 
-    if "straggler" in drills:
+    base = None
+    if "straggler" in drills or "mesh" in drills:
         base, _ = run(False)
+    if "straggler" in drills:
         drained, pipe = run(True)
         same = base == drained
         sigma_bytes = sum(t.numel() * t.element_size()
@@ -174,6 +175,30 @@ def run_drills(args, drills):
               f"switch bytes={vsn_switch_bytes(pipe.epoch)} "
               f"(vs sigma = {sigma_bytes} bytes that SN would reshard)")
         assert same
+
+    if "mesh" in drills:
+        n = args.mesh or 8
+        # same config, mesh execution: the api picks MeshPipeline
+        pipe = api.make_pipeline(dataclasses.replace(base_cfg(k, args.device),
+                                                     mesh_devices=n))
+        outs = []
+        for i, b in enumerate(stream()):
+            rc = drain_reconfig() if i == 2 else None
+            o1, o2, sw = pipe.step(b, reconfig=rc)
+            outs += collect(o1) + collect(o2)
+        same = sorted(outs) == sorted(base)
+        coll = pipe.collective_bytes()
+        sigma_bytes = sum(t.numel() * t.element_size()
+                          for t in tree_leaves(pipe.sigma))
+        print(f"[1m] mesh straggler drain on {n} shards: outputs "
+              f"identical={same}, reconfigs={int(pipe.epoch.reconfigs)}, "
+              f"cross-shard state transfer={sum(coll.values())} B "
+              f"(copies between devices: {coll or 'none'}), switch "
+              f"bytes={pipe.switch_bytes()} (tables) vs {sigma_bytes} B "
+              f"of sigma that SN would reshard")
+        assert same, "mesh run diverged from single-device oracle"
+        assert int(pipe.epoch.reconfigs) == 1
+        assert sum(coll.values()) == 0, "state moved between devices"
 
     # --- live closed loop --------------------------------------------------
     if "live" in drills:

@@ -12,8 +12,9 @@ stack (operator, pipeline, optional multi-host ingest tier, controller,
 checkpointing) is assembled by ``repro_torch.api``: the flags below
 populate one ``RuntimeConfig`` and ``build_runtime`` does the rest.
 Prints throughput, tick latency p50/p99, the reconfiguration trace, and
-detection→switch latency.  The pipeline runs the general O+ tick, as the
-reference's ``make_pipeline`` builds it.
+detection→switch latency.  The pipeline runs the general O+ tick, or
+with ``--mesh`` the fast count path, as the reference's
+``make_pipeline`` builds them.
 
 * ``--compare-sync``  also runs the synchronous host-loop baseline on the
   same stream (replaying the async run's reconfiguration trace) and
@@ -22,8 +23,9 @@ reference's ``make_pipeline`` builds it.
   static max-width run (the paper's correctness contract under
   elasticity);
 * ``--pace``          paces the source to the schedule in wall-clock;
-* ``--mesh N``        the mesh is not ported yet: refused
-  (``NotImplementedError``, ROADMAP.md queue 1 item 8);
+* ``--mesh N``        runs the pipeline on an N-shard stream mesh
+  (``MeshPipeline``, the fast count path; on one card the N shards
+  time-share it);
 * ``--record F.npz`` / ``--replay F.npz`` save / replay the exact tick
   stream (event times intact) via ``io.sources``; a recording either
   package wrote replays in the other;
@@ -241,10 +243,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: MeshPipeline is not ported yet (ROADMAP.md queue 1 "
-            "item 8)")
     dev = _device.resolve(args.device)
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "host CPU")

@@ -11,7 +11,7 @@ experts is a multi-key tuple (Theorem 1 at model scale).
   order) up to its capacity, and the partial outputs meet in one sum.  The
   reference runs it as a ``shard_map`` over the model axis; on one device
   that is one shard holding every expert, which is what is ported here.
-  More than one shard waits for the mesh (ROADMAP.md queue 1 item 8).
+  More than one shard waits for the model mesh (ROADMAP.md queue 1 item 10).
 
 Both count the pairs they drop (``dropped``, never silent); shared experts
 (deepseek) are a dense SwiGLU added outside the dispatch.  The capacity of
@@ -182,8 +182,8 @@ def moe_forward(p, x, cfg: ModelConfig, *, per_row: bool = False,
     m = cfg.moe
     if m.dispatch == "vsn" and n_shards != 1:
         raise NotImplementedError(
-            f"dispatch='vsn' over {n_shards} expert shards needs the device "
-            f"mesh, ROADMAP.md queue 1 item 8; the port runs one shard")
+            f"dispatch='vsn' over {n_shards} expert shards needs the model "
+            f"mesh, ROADMAP.md queue 1 item 10; the port runs one shard")
     xg = x.reshape((b, s, d) if per_row else (1, b * s, d))
     if m.dispatch == "sn":
         y, dropped = _sn_moe(p, xg, cfg)

@@ -17,8 +17,8 @@ same recurrence.  The kernel emits ``r_t S_{t-1}`` before its update, so
 with r = C, k = B, v = x and w = a broadcast over Dk it gives
 ``o_t = C_t S_{t-1}``, and ``y_t = a_t o_t + (C_t . B_t) x_t`` completes
 the step exactly: one launch over T steps, no shifted copy of the inputs.
-The reference's ``shard`` annotations are no-ops without a mesh (ROADMAP
-queue 1 item 8).
+The reference's ``shard`` annotations are no-ops without a model mesh
+(ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations

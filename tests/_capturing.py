@@ -36,7 +36,7 @@ class _Capturing:
         monkeypatch.setattr(torch.Tensor, "pin_memory", lambda t: t)
 
     @contextlib.contextmanager
-    def graph(self, g, pool=None, capture_error_mode=None):
+    def graph(self, g, pool=None, stream=None, capture_error_mode=None):
         me = threading.get_ident()
 
         def on_this_thread(real, here):

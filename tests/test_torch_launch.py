@@ -2,8 +2,9 @@
 ``live`` with the static oracle, ``live --record`` then ``--resume
 --replay`` (and the port resuming the reference's checkpoint directory
 and recording), ``elastic_drill``'s straggler, crash, serving and ingest drills
-with the reference's switch bytes, and the refusals of the unported mesh
-flags.  Every launcher runs on the card unless ``--device cpu`` is given.
+with the reference's switch bytes, and the mesh flags (``live --mesh``,
+the mesh drill).  Every launcher runs on the card unless ``--device cpu``
+is given.
 
 ``elastic_drill``'s ``recovery`` drills run on the card (``chip_smoke.py``'s
 ``launchers`` phase); at the reference's size (12 ticks of 64 tweets over
@@ -102,14 +103,40 @@ def test_elastic_drill_matches_reference_switch_bytes(capsys):
     assert _line(got, "[3]") == _line(want, "[3]")
 
 
+MESH = re.compile(r"outputs identical=(\w+), reconfigs=(\d+), cross-shard "
+                  r"state transfer=(\d+) B .*switch bytes=(\d+) \(tables\)")
+
+
 @pytest.mark.parametrize("launcher,argv", [
-    (p_live.main, ["--mesh", "2", "--device", "cpu"]),
-    (p_drill.main, ["--mesh", "2", "--device", "cpu"]),
-    (p_drill.main, ["--drills", "mesh", "--device", "cpu"]),
+    (p_live.main, SMALL + ["--oracle", "--mesh", "2"]),
+    (p_drill.main, ["--mesh", "2", "--drills", "straggler"]),
+    (p_drill.main, ["--drills", "mesh"]),
 ], ids=["live_mesh", "drill_mesh_flag", "drill_mesh_drill"])
-def test_mesh_flags_refuse(launcher, argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launcher(argv)
+def test_mesh_flags_run(launcher, argv, capsys):
+    """``live --mesh 2`` gives the output count of the reference's
+    ``live --mesh 1`` (its one CPU device: both run the fast count path)
+    and matches its static oracle; the mesh drill (2 shards with the
+    straggler drill, or 8 alone) drains the straggler mid-stream with the
+    single-device outputs, one reconfiguration, no state moved between
+    devices and the reference's table bytes (the reference skips its mesh
+    drill on one CPU device, so its single-device lines are the
+    comparison)."""
+    got = _run(launcher, argv + ["--device", "cpu"], capsys)
+    if launcher is p_live.main:
+        want = _run(j_live.main, SMALL + ["--oracle", "--mesh", "1"], capsys)
+        match = re.compile(r"oracle = (\w+) \((\d+) output tuples")
+        line = "[live] outputs match static oracle"
+        assert match.search(_line(got, line)).groups() == \
+            match.search(_line(want, line)).groups() == ("True", "205")
+        assert "live run OK" in got
+        return
+    want = _run(j_drill.main, ["--drills", "straggler"], capsys)
+    table = re.search(r"switch bytes=(\d+)", _line(want, "[1]")).group(1)
+    assert MESH.search(_line(got, "[1m]")).groups() == ("True", "1", "0",
+                                                        table)
+    if "straggler" in argv:
+        assert _line(got, "[1]") == _line(want, "[1]")
+    assert "elastic drill OK" in got
 
 
 @pytest.mark.parametrize("launcher,argv", [

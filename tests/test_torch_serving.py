@@ -303,8 +303,29 @@ def test_unported_options_refuse(tmp_path):
                         checkpoint_dir=str(tmp_path), checkpoint_every=4)
     with pytest.raises(ValueError, match="checkpoint"):
         build_runtime(cfg, [])
-    with pytest.raises(NotImplementedError, match="mesh"):
-        build_runtime(RuntimeConfig(mesh_devices=2, device="cpu"), [])
+
+
+def test_mesh_devices_build_a_mesh_pipeline():
+    """``mesh_devices=2`` builds a 2-shard ``MeshPipeline`` (the fast count
+    path) whose runtime gives the single-device runtime's outputs."""
+    from repro_torch.api import RuntimeConfig, build_runtime
+    from repro_torch.core.runtime import MeshPipeline, VSNPipeline
+    from repro_torch.data import datagen
+    from repro_torch.io import ReplaySource
+    batches = list(datagen.tweets(np.random.default_rng(4), n_ticks=5,
+                                  tick=16, words_per_tweet=3, vocab=300,
+                                  k_virt=64, rate_per_tick=30, device="cpu"))
+    cfg = dict(wa=50, ws=100, k_virt=64, out_cap=512, n_max=8, n_active=4,
+               stash_cap=64, device="cpu")
+    mesh = build_runtime(RuntimeConfig(mesh_devices=2, **cfg),
+                         ReplaySource(batches))
+    one = build_runtime(RuntimeConfig(**cfg), ReplaySource(batches))
+    assert isinstance(mesh.pipeline, MeshPipeline)
+    assert isinstance(one.pipeline, VSNPipeline)
+    assert mesh.pipeline.n_shards == 2
+    mesh.run()
+    one.run()
+    assert mesh.sink.results() == one.sink.results() != []
 
 
 def test_serve_launcher_defaults_to_the_card():
