@@ -8,7 +8,7 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
 1. ``build``   — compile the CUDA kernels from ``src/repro_torch/
                  kernels/csrc`` (one ``nvcc`` per source, in parallel) and
                  print the card's name and power limit.
-2. ``kernels`` — hold each of the six kernels against its plain PyTorch
+2. ``kernels`` — hold each of the eight kernels against its plain PyTorch
                  version on the card at the main path's shapes and on edge
                  cases (the four stream kernels exactly; flash_attention
                  within 2e-5 in float32 and an elementwise bfloat16 limit,
@@ -29,7 +29,13 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
                  two model kernels at their decode and prefill shapes,
                  hymba-1.5b's among them (linear_scan also at T 1024,
                  strong and zero decays, the chunk's edges, and a sweep
-                 over the chunk length).
+                 over the chunk length); the backward kernels
+                 flash_attention_bwd (hymba-1.5b's, qwen3-14b's,
+                 deepseek-moe-16b's and gemma3's training shapes, D 16,
+                 32 and 160, rows that see no key) and linear_scan_bwd
+                 (hymba-1.5b's SSM, rwkv6-7b's at T 128 and 1024, strong
+                 and zero decays, every key size), each also against
+                 autograd of the plain forward and twice bit for bit.
 3. ``q1_wordcount`` — the Q1 wordcount VSN pipeline with a mid-stream
                  reconfiguration (4 -> 16 instances), equal to the same run
                  on the CPU (outputs, switch flags, instance loads), with 0
@@ -110,7 +116,8 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
                  --resume``, each a process of its own on the card, and
                  the same ``live`` run on the CPU with an equal output
                  count; ``live --mesh 4`` with its oracle and the mesh
-                 drill (``--drills mesh --mesh 4``).
+                 drill (``--drills mesh --mesh 4``).  Phase 19's two
+                 training processes run beside these.
 15-18. ``serve_qwen3_14b``, ``serve_rwkv6_7b``, ``serve_deepseek_moe_16b``
                  (the MoE's one-shard ``vsn`` dispatch, each decode lane
                  routed alone; its dropped tokens counted, none in
@@ -132,14 +139,27 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
                  moving more, both token-invisible, and a float32 copy
                  cut to 4 layers token-identical to ``reference_decode``
                  (see ``serve_full_width``).
+19. ``train_hymba_1_5b`` — ``repro_torch.launch.train`` on hymba-1.5b at
+                 full width and depth in bf16 (batch 8 of 128 tokens, 8
+                 microbatches), 10 steps then a resume to 20, each a
+                 process of its own (run beside phase 14): finite printed losses, the last
+                 below the first, each kernel's launches a step (the
+                 model kernels twice a block with the recompute, the
+                 backward kernels once), a bit-exact save and restore,
+                 the restored step's forward loss as printed, a float32
+                 4-layer copy's step on the card against the CPU, the
+                 bf16 gradients through the kernels against the plain
+                 versions at 4, 8, 16 and 32 layers with two controls that
+                 must fail; timed and profiled steps (see
+                 ``train_hymba_1_5b``).
 
-Phases 3 to 18 are the main path: each zeroes the launch counts right
-before its card run and reads them right after (``launchers`` reads each
-of its processes' counts), and the ``{"kernels": [...]}`` line reports
-their sum with phase 2's times.  Each phase's line holds its
-``seconds``.  A graph replay
-counts the launches its capture tallied (``dispatch.add_launches``).  The last line is
-``{"ok": true, "device": {...}}``.  A kernel's ``ms`` is the median over
+Phases 3 to 19 are the main path: each zeroes the launch counts right
+before its card run and reads them right after (``launchers`` and
+``train_hymba_1_5b`` read each of their processes' counts), and the
+``{"kernels": [...]}`` line reports their sum with phase 2's times.
+Each phase's line holds its ``seconds``.  A graph replay counts the
+launches its capture tallied (``dispatch.add_launches``).  The last line
+is ``{"ok": true, "device": {...}}``.  A kernel's ``ms`` is the median over
 20 CUDA-event pairs of the mean of 20 back-to-back launches after
 warm-up, ``single_ms`` the median of 20 single launches (which also spans
 a wrapper's host time), ``device_ms`` the profiler's device time of one
@@ -164,6 +184,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import pathlib
 import re
 import statistics
@@ -1406,6 +1427,245 @@ def check_linear_scan(dev):
                 chunk_sweep_ms=sweep)
 
 
+def bwd_close(name, got, want, errs, used, f32_rtol, bf16=False):
+    """Each gradient of ``got`` against ``want``: float32 within
+    ``f32_rtol`` of the gradient's largest magnitude (at least 1);
+    bfloat16 elementwise within |want| / 64 + 2^-7 of its largest.
+    Records the largest error and share of the limit; raises past it."""
+    worst_err, worst_used = 0.0, 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g is None and w is None:
+            continue
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name} gradient {i}: {tuple(g.shape)} "
+                                 f"{g.dtype} != {tuple(w.shape)} {w.dtype}")
+        diff = (g.float() - w.float()).abs()
+        top = float(w.float().abs().max()) if w.numel() else 0.0
+        if bf16:
+            limit = w.float().abs() / 64 + 2 ** -7 * top + 1e-30
+        else:
+            limit = torch.full_like(diff, f32_rtol * max(top, 1.0))
+        if diff.numel():
+            worst_err = max(worst_err, float(diff.max()))
+            worst_used = max(worst_used, float((diff / limit).max()))
+    errs[name], used[name] = worst_err, worst_used
+    if not worst_used <= 1.0:               # NaN fails too
+        raise AssertionError(f"{name}: max error {worst_err}, "
+                             f"{worst_used:.3g} of the limit")
+
+
+def bitwise_repeat(name, call):
+    """Two calls of a backward kernel give the same bits."""
+    first, second = call(), call()
+    for a, b in zip(first, second):
+        if (a is None) != (b is None) or (a is not None
+                                          and not torch.equal(a, b)):
+            raise AssertionError(f"{name}: two calls differ")
+
+
+# attention backward's cases: (B, Hq, Hkv, Sq, Skv, D, causal, window)
+ATTN_BWD_CASES = {
+    "hymba": (1, 25, 5, 128, 128, 64, True, None),
+    "qwen3_14b": (1, 40, 8, 128, 128, 128, True, None),
+    "deepseek": (1, 16, 16, 128, 128, 128, True, None),
+    "gemma3_window": (1, 8, 4, 1100, 1100, 256, True, 1024),
+    "d16_ragged": (2, 4, 2, 37, 37, 16, True, 5),
+    "d32_no_key_rows": (1, 2, 1, 40, 24, 32, True, None),
+    "d160_non_causal": (1, 4, 1, 20, 33, 160, False, None),
+}
+
+
+def check_flash_attention_bwd(dev):
+    """``flash_attention_bwd`` against its plain version on the card, at
+    hymba-1.5b's training shape (q [1, 25, 128, 64], n_rep 5, causal),
+    qwen3-14b's (D 128, n_rep 5), deepseek-moe-16b's (D 128, n_rep 1),
+    gemma3's (D 256, n_rep 2, window 1024 over 1,100 tokens), and D 16,
+    32 and 160 with a window, rows that see no key and no causal mask,
+    each in float32 and bfloat16.  Limits: float32 within 1e-4 of each
+    gradient's largest magnitude (its sums over keys and heads run in
+    another order than the plain version's); bfloat16 elementwise within
+    |want| / 64 + 2^-7 of the largest (both round the outputs to bfloat16
+    and p to bfloat16 for dV, where a p near a rounding boundary may land
+    on the other side).  Each float32 case also against autograd of the
+    plain forward, and every case twice, bit for bit.  Timed at hymba's
+    bfloat16 shape against SDPA's backward with the KV heads repeated."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd_op, flash_attention_op)
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_ref)
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(23)
+    errs, used, timed = {}, {}, {}
+    for name, (b, hq, hkv, sq, skv, d, causal, window) in \
+            ATTN_BWD_CASES.items():
+        rep = hq // hkv
+        kw = dict(causal=causal, window=window, n_rep=rep)
+        rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+        base = [rnd(b, hq, sq, d), rnd(b, hkv, skv, d), rnd(b, hkv, skv, d),
+                rnd(b, hq, sq, d)]
+        for dt in (f32, bf16):
+            tag = f"{name}_{'f32' if dt is f32 else 'bf16'}"
+            q, k, v, do = (x.to(dt) for x in base)
+            o = flash_attention_op(q, k, v, **kw)
+            call = lambda: flash_attention_bwd_op(q, k, v, o, do, **kw)
+            got = call()
+            bwd_close(tag, got, flash_attention_bwd_ref(q, k, v, o, do, **kw),
+                      errs, used, 1e-4, bf16=dt is bf16)
+            bitwise_repeat(tag, call)
+            if dt is f32:
+                leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+                want = torch.autograd.grad(
+                    (flash_attention_ref(*leaves, **kw) * do).sum(), leaves)
+                bwd_close(f"{tag}_autograd", got, want, errs, used, 1e-4)
+            if name == "hymba" and dt is bf16:
+                timed = attn_bwd_timed(q, k, v, o, do, kw)
+            del q, k, v, do, o, got
+    return dict(name="flash_attention_bwd", cases=len(errs),
+                max_abs_err=max(v for k, v in errs.items() if "f32" in k),
+                max_abs_err_bf16=max(v for k, v in errs.items()
+                                     if "bf16" in k),
+                errors=errs, limit_used=max(used.values()),
+                limit_used_by_case=used, bitwise_repeat=True, **timed)
+
+
+def attn_bwd_timed(q, k, v, o, do, kw):
+    """The backward's row at one shape: kernel, plain version, SDPA's
+    backward (KV heads repeated, leaves of their own, so the timed
+    graph is SDPA's backward alone) and the card's bound."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd_op
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    rep = kw["n_rep"]
+    qs, ke, ve = (x.detach().clone().requires_grad_() for x in (
+        q, k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1)))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qs, ke, ve, is_causal=kw["causal"])
+    library = lambda: torch.autograd.grad(out, (qs, ke, ve), do,
+                                          retain_graph=True)
+    # visible (query, key) pairs; per pair s = q.k (2D), dP = dO.v (2D),
+    # dV += p dO (2D), dQ += dS k (2D), dK += dS q (2D)
+    off = skv - sq
+    pairs = b * hq * sum(min(skv, max(0, off + i + 1)) for i in range(sq))
+    el = q.element_size()
+    ms, by = bound(el * (3 * b * hq * sq * d + 2 * b * hkv * skv * d)
+                   + el * (b * hq * sq * d + 2 * b * hkv * skv * d),
+                   bf16_ops=10 * d * pairs)
+    return dict(shape=f"q [{b}, {hq}, {sq}, {d}] {str(q.dtype)[6:]}, "
+                      f"n_rep {rep}, causal",
+                **timings(lambda: flash_attention_bwd_op(q, k, v, o, do, **kw),
+                          lambda: flash_attention_bwd_ref(q, k, v, o, do,
+                                                          **kw),
+                          library),
+                bound_ms=ms, bound_by=by)
+
+
+def scan_bwd_inputs(dev, gen, bh, t, dk, dv, u_rows=None, s0=False, w=None,
+                    ds_t=True):
+    """linear_scan's inputs (``scan_inputs``) with ``do`` and, unless
+    ``ds_t`` is False, a ``dS_T``."""
+    a = scan_inputs(dev, gen, bh, t, dk, dv, u_rows=u_rows, s0=s0, w=w)
+    a["do"] = torch.randn((bh, t, dv), generator=gen, device=dev)
+    a["ds_t"] = (torch.randn((bh, dk, dv), generator=gen, device=dev)
+                 if ds_t else None)
+    return a
+
+
+def scan_bwd_call(f, a):
+    return f(a["r"], a["k"], a["v"], a["w"], a["u"], a["s0"], a["do"],
+             a["ds_t"])
+
+
+def check_linear_scan_bwd(dev):
+    """``linear_scan_bwd`` against its plain version on the card, within
+    1e-4 of each gradient's largest magnitude (the forward's tolerance;
+    sums over columns, tiles and steps run in another order): hymba-1.5b's
+    training call (BH 25, T 128, Dk 16, Dv 64, no u, s0 zeros, dS_T
+    unused), rwkv6-7b's (BH 64, T 128, Dk 64, u [64, 64], s0, dS_T) and at
+    T 1024, RWKV6's strong decays exp(-exp(x)) up to x = 8 and decays
+    mixed from {0, 1e-30, 1e-6, 0.5, 1} (nothing NaN), every key size
+    (8 to 128), u one row a bh and one a head over two lanes, ragged Dv
+    and T, T 1.  hymba's and rwkv6's also against autograd of the plain
+    forward, and every case twice, bit for bit.  Timed at hymba's
+    shape."""
+    from repro_torch.kernels.linear_scan.ops import linear_scan_bwd_op
+    from repro_torch.kernels.linear_scan.ref import (linear_scan_bwd_ref,
+                                                     linear_scan_ref)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    inputs = functools.partial(scan_bwd_inputs, dev, gen)
+    rwkv = lambda *s: torch.exp(-torch.exp(
+        -6 + 14 * torch.rand(s, generator=gen, device=dev)))
+    mixed = lambda *s: torch.tensor([0, 1e-30, 1e-6, 0.5, 1], device=dev)[
+        torch.randint(0, 5, s, generator=gen, device=dev)]
+    hymba = ssm_scan_inputs(dev, gen, 25, 128)
+    hymba.update(s0=torch.zeros_like(hymba["s0"]), ds_t=None,
+                 do=torch.randn((25, 128, 64), generator=gen, device=dev))
+    cases = {
+        "hymba": hymba,
+        "rwkv6": inputs(64, 128, 64, 64, u_rows=64, s0=True),
+        "rwkv6_t1024": inputs(64, 1024, 64, 64, u_rows=64, s0=True),
+        "rwkv6_strong_decays": inputs(64, 128, 64, 64, u_rows=64, s0=True,
+                                      w=rwkv(64, 128, 64)),
+        "zero_decays": inputs(16, 53, 64, 64, u_rows=16, s0=True,
+                              w=mixed(16, 53, 64)),
+        "dk8_u_per_bh": inputs(6, 70, 8, 8, u_rows=6, s0=True),
+        "dk32_two_lanes": inputs(8, 33, 32, 32, u_rows=4, s0=True),
+        "dk128_dv40": inputs(4, 130, 128, 40, u_rows=2, s0=True),
+        "t1_no_ds_t": inputs(512, 1, 64, 64, u_rows=64, s0=True,
+                             ds_t=False),
+    }
+    errs, used = {}, {}
+    for name, a in cases.items():
+        call = lambda: scan_bwd_call(linear_scan_bwd_op, a)
+        got = call()
+        bwd_close(name, got, scan_bwd_call(linear_scan_bwd_ref, a), errs,
+                  used, 1e-4)
+        bitwise_repeat(name, call)
+        if name in ("hymba", "rwkv6"):
+            ins = [None if a[x] is None else a[x].clone().requires_grad_()
+                   for x in ("r", "k", "v", "w", "u", "s0")]
+            o, s_t = linear_scan_ref(*ins)
+            obj = (o * a["do"]).sum() + (0 if a["ds_t"] is None
+                                         else (s_t * a["ds_t"]).sum())
+            want = torch.autograd.grad(obj, [x for x in ins if x is not None])
+            bwd_close(f"{name}_autograd",
+                      [g for g, x in zip(got, ins) if x is not None], want,
+                      errs, used, 1e-4)
+    return dict(name="linear_scan_bwd", cases=len(errs),
+                max_abs_err=max(errs.values()), errors=errs,
+                limit_used=max(used.values()), limit_used_by_case=used,
+                bitwise_repeat=True, **scan_bwd_timed(hymba),
+                rwkv6=scan_bwd_timed(cases["rwkv6"]))
+
+
+def scan_bwd_timed(a):
+    """linear_scan_bwd's row at the inputs ``a``: kernel, plain version
+    and the card's bound.  Bytes: r, k, w, v, do in, and s0, dS_T, u when
+    given; dr, dk, dw, dv, ds0 out, and du.  Operations per step and
+    state element: the state before the step rebuilt (3: w s + k v), the
+    gradient's G update (3), dr, dk, dv and dw (2 each); the bonus's rank-1
+    terms per step add 3 Dk + 2 Dv for its dot products and 6 Dk + 2 Dv
+    for the u terms of dr, dk, dv and du."""
+    from repro_torch.kernels.linear_scan.ops import linear_scan_bwd_op
+    from repro_torch.kernels.linear_scan.ref import linear_scan_bwd_ref
+    bh, t, dk = a["r"].shape
+    dv = a["v"].shape[-1]
+    opt = lambda x, n: 0 if a[x] is None else n
+    n_bytes = 4 * (6 * bh * t * dk + 3 * bh * t * dv
+                   + opt("s0", bh * dk * dv) + opt("ds_t", bh * dk * dv)
+                   + bh * dk * dv
+                   + (0 if a["u"] is None else 2 * a["u"].numel()))
+    fp_ops = 14 * bh * t * dk * dv + opt("u", bh * t * (9 * dk + 4 * dv))
+    ms, by = bound(n_bytes, fp_ops=fp_ops)
+    return dict(shape=f"BH {bh}, T {t}, Dk {dk}, Dv {dv}, "
+                      f"u {a['u'] is not None}, s0 {a['s0'] is not None}, "
+                      f"dS_T {a['ds_t'] is not None}",
+                **timings(lambda: scan_bwd_call(linear_scan_bwd_op, a),
+                          lambda: scan_bwd_call(linear_scan_bwd_ref, a),
+                          plain_reps=3),
+                bound_ms=ms, bound_by=by)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: Q1 wordcount through VSNPipeline (and SN on a prefix)
 # ---------------------------------------------------------------------------
@@ -1535,7 +1795,7 @@ PORT_KERNEL_SYMBOLS = ("scalegate_", "segment_aggregate", "window_join",
                        "flash_", "linear_scan_")
 
 
-def device_profile(step, n: int, kernel=None) -> dict:
+def device_profile(step, n: int, kernel=None, cpu_ops=True) -> dict:
     """``step(i)`` for i < n under torch.profiler: host wall time per tick,
     the share of it the device spent in kernels and copies, device
     operations per tick, host synchronizations per tick and the host time
@@ -1543,10 +1803,14 @@ def device_profile(step, n: int, kernel=None) -> dict:
     ``kernel`` the device time per tick of the kernels whose name
     contains it, and that of each of the port's kernels the ticks ran.
     Device numbers are None when the profiler recorded no device
-    activity."""
+    activity.  ``cpu_ops=False`` records the CUDA activity alone (kernels,
+    copies and the CUDA runtime's calls, its synchronizations among them):
+    for a train step of ~118,000 kernels the CPU operators' events took
+    ~60 s to parse (NVIDIA H100 80GB HBM3 host)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    cpu = cpu_ops or not torch.cuda.is_available()    # a CPU rehearsal
+    with profile(activities=([ProfilerActivity.CPU] if cpu else [])
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(n):
             step(i)
@@ -2864,13 +3128,20 @@ LAUNCHER_LINES = ("# device", "[1]", "[1m]", "[2]", "[3]", "[4]", "[5]", "[6]",
                   "live resume OK")
 
 
-def run_launcher(module: str, argv, timeout: float):
+def run_launcher(module: str, argv, timeout: float,
+                 prefixes=LAUNCHER_LINES, threads=None):
     """One launcher in its own process on the card; raises on a nonzero
-    exit.  Returns its seconds, its summary lines and its launches."""
+    exit.  Returns its seconds, its summary lines (those starting with
+    one of ``prefixes``) and its launches.  ``threads`` caps the
+    process's CPU threads (``OMP_NUM_THREADS``), for processes run side by
+    side on the host's few cores."""
     t0 = time.perf_counter()
+    env = None if threads is None else {
+        **os.environ, "OMP_NUM_THREADS": str(threads),
+        "MKL_NUM_THREADS": str(threads)}
     out = subprocess.run(
         [sys.executable, "-c", LAUNCHER, str(ROOT / "src"), module,
-         *argv], capture_output=True, text=True, timeout=timeout)
+         *argv], capture_output=True, text=True, timeout=timeout, env=env)
     seconds = time.perf_counter() - t0
     if out.returncode != 0:
         raise AssertionError(
@@ -2878,8 +3149,7 @@ def run_launcher(module: str, argv, timeout: float):
             f"{out.returncode}:\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
     lines = out.stdout.strip().splitlines()
     return dict(argv=[module, *argv], seconds=seconds,
-                summary=[ln for ln in lines[:-1]
-                         if ln.startswith(LAUNCHER_LINES)],
+                summary=[ln for ln in lines[:-1] if ln.startswith(prefixes)],
                 launches=json.loads(lines[-1]))
 
 
@@ -2915,15 +3185,21 @@ def launchers(dev, drills="straggler,live,ingest,serving,crash,recovery,"
     in the persistent driver's graphs, equal to its oracle; and the
     stream mesh: ``live --mesh 4`` at 24 ticks of 256 with its oracle and
     ``elastic_drill --drills mesh --mesh 4``.  Nothing is cut
-    (``--drill-times`` times each drill alone)."""
+    (``--drill-times`` times each drill alone).  ``recovery-kill``, which
+    alone takes about as long as the other drills together (~66 s), runs
+    in a process of its own beside theirs.  The card's processes get one
+    CPU thread each and the CPU run four: with a thread a core each the
+    CPU run took 191 s beside six card processes, with two threads 134 s
+    (NVIDIA H100 80GB HBM3 hosts, 8 cores)."""
     import concurrent.futures
     import tempfile
 
     dev = torch.device(dev)
     # the launchers' own default is the card; the CPU rehearsal asks
     where = [] if dev.type == "cuda" else ["--device", "cpu"]
+    alone = "recovery-kill"
     with tempfile.TemporaryDirectory() as d, \
-            concurrent.futures.ThreadPoolExecutor(6) as pool:
+            concurrent.futures.ThreadPoolExecutor(7) as pool:
         ck, rec = str(pathlib.Path(d) / "ck"), str(pathlib.Path(d) /
                                                     "stream.npz")
         size = ["--ticks", str(live_ticks), "--tick", str(live_tick), *where]
@@ -2932,36 +3208,41 @@ def launchers(dev, drills="straggler,live,ingest,serving,crash,recovery,"
             first = run_launcher(
                 "live", [*size, "--oracle", "--checkpoint-dir", ck,
                          "--checkpoint-every", str(every), "--record", rec],
-                timeout=600)
+                timeout=600, threads=1)
             resume = run_launcher(
                 "live", [*size, "--resume", "--replay", rec,
-                         "--checkpoint-dir", ck], timeout=600)
+                         "--checkpoint-dir", ck], timeout=600, threads=1)
             return first, resume
 
-        drill_f = pool.submit(run_launcher, "elastic_drill",
-                              ["--drills", drills, *where], 600)
+        split = [",".join(x for x in drills.split(",") if x != alone)]
+        split += [alone] if alone in drills.split(",") else []
+        drill_fs = [pool.submit(run_launcher, "elastic_drill",
+                                ["--drills", x, *where], 600, threads=1)
+                    for x in split]
         live_f = pool.submit(live_pair)
         # the default general tick inside the persistent driver: 4 ticks
         # a call, one graph a call shape
         super_f = pool.submit(run_launcher, "live",
                               ["--ticks", "8", "--tick", "32",
                                "--super-batch", "4", "--oracle", *where],
-                              600)
+                              600, threads=1)
         # the same live run on this host's CPU: the general tick on the
         # card against its plain path (a host's numpy draws the stream)
         cpu_f = pool.submit(run_launcher, "live",
                             ["--ticks", str(live_ticks), "--tick",
                              str(live_tick), "--oracle", "--device", "cpu"],
-                            600)
+                            600, threads=4)
         # the stream mesh: live on 4 shards (the fast count path) with its
         # oracle, and the mesh drill
         mesh_live_f = pool.submit(run_launcher, "live",
-                                  [*size, "--oracle", "--mesh", "4"], 600)
+                                  [*size, "--oracle", "--mesh", "4"], 600,
+                                  threads=1)
         mesh_drill_f = pool.submit(run_launcher, "elastic_drill",
                                    ["--drills", "mesh", "--mesh", "4",
-                                    *where], 600)
-        runs = [drill_f.result(), *live_f.result(), super_f.result(),
-                mesh_live_f.result(), mesh_drill_f.result()]
+                                    *where], 600, threads=1)
+        runs = [drill_fs[0].result(), *live_f.result(), super_f.result(),
+                mesh_live_f.result(), mesh_drill_f.result(),
+                *(f.result() for f in drill_fs[1:])]
         cpu_run = cpu_f.result()
     text = "\n".join(ln for r in runs for ln in r["summary"])
     for want in ("[1] straggler drain: outputs identical=True",
@@ -3441,6 +3722,399 @@ def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: training hymba-1.5b at full width and depth
+# ---------------------------------------------------------------------------
+
+TRAIN_ARGS = ("--arch", "hymba-1.5b", "--batch", "8", "--seq", "128")
+TRAIN_LINES = ("arch=", "resumed from", "step ", "done")
+STEP_LINE = re.compile(r"step (\d+) loss=(\S+) gnorm=(\S+) tok/s=(\d+)")
+# bf16: one microbatch's gradient through the kernels against the same
+# through the plain versions on the card at the first 4, 8, 16 and 32
+# layers (``train_bf16_grads``): each leaf's relative distance within
+# twice the largest the card read at step 10 (0.0200, 0.0441, 0.1226,
+# 0.2537, the same bits on repeats); the controls read 1.0 (attention's
+# dV zeroed) and 0.586-0.658 (the scan's dv zeroed) at every depth
+TRAIN_BF16_LEAF = {4: 0.04, 8: 0.09, 16: 0.25, 32: 0.5}
+# the float32 4-layer copy, card (kernels) against CPU (plain versions):
+# loss and gradient norm relative, each gradient within a share of its
+# leaf's largest magnitude, the parameters within 2.5 lr of each other
+# and within 1e-6 on all but a share of their elements
+TRAIN_F32 = dict(loss_rtol=1e-5, gnorm_rtol=1e-4, grad_rtol=1e-3,
+                 param_share=1e-3)
+
+
+def _step_lines(run) -> dict:
+    """step -> (loss, gnorm, tok/s) of a train launcher's printed lines."""
+    out = {}
+    for ln in run["summary"]:
+        m = STEP_LINE.match(ln)
+        if m:
+            out[int(m.group(1))] = (float(m.group(2)), float(m.group(3)),
+                                    int(m.group(4)))
+    return out
+
+
+def _leaf_rel(got, want) -> float:
+    """||got - want|| / ||want|| in float32 (0 when both are zero)."""
+    g, w = got.float(), want.float()
+    den = float(w.norm())
+    return float((g - w).norm()) / den if den else float(g.norm())
+
+
+def _with_launchers(fn, swap):
+    """``fn()`` with the CUDA launcher of each kernel named in ``swap``
+    replaced by ``swap[name]`` (a plain version, or a control's broken
+    kernel).  A comparison, not the main path: each kernel's launch count
+    is put back as it was before."""
+    from repro_torch.kernels import dispatch
+    reg = dispatch.registered()
+    saved = {n: (reg[n].cuda, reg[n].launches) for n in swap}
+    try:
+        for n, f in swap.items():
+            reg[n].cuda = f
+        return fn()
+    finally:
+        for n, (f, count) in saved.items():
+            reg[n].cuda, reg[n].launches = f, count
+
+
+def _dropping(name, i):
+    """A control: kernel ``name``'s launcher with its output ``i`` (one
+    gradient) zeroed, as ``_with_launchers``' ``swap``."""
+    from repro_torch.kernels import dispatch
+    launch = dispatch.registered()[name].cuda
+
+    def broken(*a, **kw):
+        out = list(launch(*a, **kw))
+        out[i] = torch.zeros_like(out[i])
+        return tuple(out)
+    return {name: broken}
+
+
+def train_launchers(dev, ck, steps=(10, 20), every=10, reduced=False):
+    """``python -m repro_torch.launch.train`` (``TRAIN_ARGS``) for
+    ``steps[0]`` steps with a checkpoint every ``every`` into ``ck``, then
+    the same directory on to ``steps[1]``, each a process of its own with
+    two CPU threads -> their ``run_launcher`` results, which
+    ``train_hymba_1_5b`` checks.  ``main`` runs them beside the
+    ``launchers`` phase, whose processes are host-bound and hold little
+    of the card's memory."""
+    on_card = torch.device(dev).type == "cuda"
+    where = ([] if on_card else ["--device", "cpu"]) + (
+        ["--reduced"] if reduced else [])
+    return [run_launcher("train", [*TRAIN_ARGS, "--steps", str(n),
+                                   "--ckpt-every", str(every),
+                                   "--ckpt-dir", ck, *where],
+                         timeout=600, prefixes=TRAIN_LINES, threads=2)
+            for n in steps]
+
+
+def train_hymba_1_5b(dev, runs, ck, steps=(10, 20), every=10,
+                     check_layers=4, reduced=False):
+    """``python -m repro_torch.launch.train`` on hymba-1.5b at full width
+    and depth (32 layers, bf16, random parameters from seed 0), batch 8 of
+    128 tokens in 8 microbatches, each run a process of its own on the
+    card (``runs``, ``train_launchers``' results for the directory
+    ``ck``): ``steps[0]`` steps with a checkpoint every ``every``, then
+    the same directory on to ``steps[1]`` (``resumed from step 10``).  A
+    checkpoint of hymba's ``(params, opt)`` is ~12.6 GB; to keep the
+    script's disk writes under ~30 GB, the launchers save every 10 steps
+    (two checkpoints) and the in-process round trip saves a cut of the
+    restored state to ``check_layers`` layers.  Checks: the printed losses and gradient norms finite, the
+    last step's loss below the first's; each process's launches per step,
+    flash_attention and linear_scan 2 x 32 x 8 (forward, and the
+    recompute of non-reentrant checkpointing per block) and their
+    backward kernels 32 x 8.  Then in this process: step 10 restored from
+    the launchers' directory, saved again in the reference's layout (cut
+    to ``check_layers`` layers) and restored bit for bit; one forward (no
+    gradient) on the batch ``default_rng(10)`` draws first, whose loss
+    prints as the resumed process's step-11 loss; a few steps timed (p50
+    ms, tokens/s, peak GB) and one profiled (device operations, host
+    syncs, busy share); a float32 copy cut to ``check_layers`` layers at
+    full width, one ``train_step`` (2 microbatches of one row) on the
+    card against the CPU's plain path (``TRAIN_F32``); and one
+    microbatch's bf16 gradient through the kernels against the same
+    through the plain versions on the card (``train_bf16_grads``).
+    ``dev="cpu"`` with ``reduced=True`` (and ``train_launchers`` run so)
+    rehearses the phase on the CPU at the reduced config (the launch
+    counts and peak memory are the card's only)."""
+    import tempfile
+    from repro_torch.configs import canon, get_config
+    from repro_torch.data import datagen
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import train as TL
+    from repro_torch.configs import reduced as reduce_cfg
+    from repro_torch.models import model as M, transformer
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves
+
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    cfg = get_config(canon(TRAIN_ARGS[1]))
+    if reduced:
+        cfg = reduce_cfg(cfg)
+    batch_n, seq = int(TRAIN_ARGS[3]), int(TRAIN_ARGS[5])
+    m, layers = cfg.n_microbatches, cfg.n_layers
+    out = dict(phase="train_hymba_1_5b", arch=cfg.name, layers=layers,
+               batch=batch_n, seq=seq, microbatches=m, steps=list(steps),
+               ckpt_every=every)
+    secs = {}                                # where the phase's time goes
+    t_mark = [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        secs[name] = now - t_mark[0]
+        t_mark[0] = now
+
+    with tempfile.TemporaryDirectory() as d:
+        printed = [_step_lines(r) for r in runs]
+        # the reference's cadence: the first step of a run and every 10th
+        for got, (lo, hi) in zip(printed, ((0, steps[0]), steps)):
+            want = [s for s in range(lo + 1, hi + 1)
+                    if s % 10 == 0 or s == lo + 1]
+            assert sorted(got) == want, (got, want)
+        assert f"resumed from step {steps[0]}" in runs[1]["summary"], runs[1]
+        assert all(r["summary"][-1] == "done" for r in runs), runs
+        every_step = {**printed[0], **printed[1]}
+        assert all(math.isfinite(l) and math.isfinite(g)
+                   for l, g, _ in every_step.values()), every_step
+        assert every_step[steps[1]][0] < every_step[1][0], every_step
+        per_step = {"flash_attention": 2 * layers * m,
+                    "linear_scan": 2 * layers * m,
+                    "flash_attention_bwd": layers * m,
+                    "linear_scan_bwd": layers * m}
+        for r, n in zip(runs, (steps[0], steps[1] - steps[0])):
+            got = {k: r["launches"].get(k, 0) for k in per_step}
+            if on_card:
+                assert got == {k: n * v for k, v in per_step.items()}, got
+        out.update(printed={s: dict(loss=l, gnorm=g, tok_s=t)
+                            for s, (l, g, t) in sorted(every_step.items())},
+                   runs=[dict(argv=r["argv"], seconds=r["seconds"],
+                              launches=r["launches"]) for r in runs],
+                   launches_per_step=per_step)
+
+        # in this process: step 10 restored from the launchers' directory
+        params = transformer.init_params(cfg, seed=0, device=dev)
+        opt = adamw.init_opt(params)
+        params, opt = TL.restore(ck, steps[0], cfg, params, opt, dev)
+        assert int(opt.step) == steps[0]
+        mark("restore")
+        # the round trip on the restored state's first check_layers layers
+        cut = dataclasses.replace(cfg, n_layers=check_layers)
+        keep = lambda t: {**t, "layers": t["layers"][:check_layers]}
+        part = (keep(params), adamw.OptState(keep(opt.mu), keep(opt.nu),
+                                             opt.step))
+        again = str(pathlib.Path(d) / "again")
+        TL.save(again, steps[0], cut, *part, async_=False)
+        back = TL.restore(again, steps[0], cut, *part, dev)
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(part),
+                                                     tree_leaves(back)))
+        del part, back
+    out["save_restore_bitwise"] = dict(layers=check_layers, bitwise=True)
+    mark("round_trip")
+
+    timed_steps = 2                     # after a warm-up; then one profiled
+    batches = datagen.token_batches(np.random.default_rng(steps[0]),
+                                    vocab=cfg.vocab, batch=batch_n, seq=seq,
+                                    n_batches=timed_steps + 2)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+               for b in batches]
+    first = batches[0]
+    positions = torch.arange(seq, device=dev)
+    mb = batch_n // m
+    with torch.no_grad():
+        loss = torch.zeros((), dtype=torch.float32, device=dev)
+        for i in range(m):
+            rows = slice(i * mb, (i + 1) * mb)
+            loss = loss + transformer.loss_fn(
+                params, cfg, first["inputs"][rows], first["labels"][rows],
+                first["mask"][rows], positions)[0]
+        forward_loss = f"{float(loss / m):.4f}"
+    printed_11 = f"{every_step[steps[0] + 1][0]:.4f}"
+    assert forward_loss == printed_11, (forward_loss, printed_11)
+    out["restored_forward_loss"] = dict(forward=forward_loss,
+                                        printed=printed_11)
+    mark("forward")
+
+    # timed and profiled steps from the restored state
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, total_steps=steps[1],
+                                warmup_steps=max(steps[1] // 20, 1))
+    state = [params, opt]
+
+    def step(i):
+        state[0], state[1], met = M.train_step(state[0], state[1],
+                                               batches[1 + i % timed_steps],
+                                               cfg=cfg, opt_cfg=opt_cfg)
+        return met
+
+    step(0)                                                  # warm-up
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    walls = []
+    for i in range(timed_steps):
+        t0 = time.perf_counter()
+        float(step(i)["loss"])
+        walls.append((time.perf_counter() - t0) * 1e3)
+    p50 = statistics.median(walls)
+    out["steps_timed"] = dict(
+        ms=walls, p50_ms=p50, tokens_per_s=batch_n * seq / p50 * 1e3,
+        peak_gb=(torch.cuda.max_memory_allocated(dev) / 1e9 if on_card
+                 else None))
+    out["profile"] = device_profile(lambda i: float(step(i)["loss"]), 1,
+                                    kernel="_bwd", cpu_ops=False)
+    del opt, state
+    _free_card(dev)
+    mark("timed_steps")
+    out["float32_copy"] = train_f32_copy(dev, cfg, check_layers, seq)
+    mark("float32_copy")
+    out["bf16_grads"] = train_bf16_grads(
+        params, cfg, {k: v[:mb] for k, v in first.items()}, positions)
+    del params
+    _free_card(dev)
+    mark("bf16_grads")
+    out["seconds_by_part"] = secs
+    out["launches"] = {name: sum(r["launches"].get(name, 0) for r in runs)
+                       for name in dispatch.registered()}
+    return out
+
+
+def _grads(params, cfg, batch, positions):
+    """``loss_fn``'s gradients at ``params`` (leaf order) on ``batch``."""
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    live = tree_unflatten(params, leaves)
+    loss, _ = transformer.loss_fn(live, cfg, batch["inputs"],
+                                  batch["labels"], batch["mask"], positions)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def train_bf16_grads(params, cfg, batch, positions):
+    """One microbatch's bf16 gradient through the kernels (``g_k``)
+    against the same through the plain versions on the card (``g_p``),
+    at the first L layers of ``params`` (full width) for each L of
+    ``TRAIN_BF16_LEAF``: every leaf's ||g_k - g_p|| / ||g_p|| within the
+    depth's limit.  Two controls must fail that check at every depth:
+    ``flash_attention_bwd`` with its dV zeroed and ``linear_scan_bwd``
+    with its dv zeroed.  The witness that bf16 rounding, not a kernel,
+    sets the distance: each path's whole gradient against the float32
+    gradient (``g_32``, through the kernels, which hold their plain
+    versions to 2e-5 in float32), E_k and E_p, at each depth; they grow
+    with depth alike."""
+    import dataclasses as dc
+    from repro_torch.kernels import dispatch
+    from repro_torch.tree import tree_map
+    plain = {n: k.plain for n, k in dispatch.registered().items()}
+    controls = {"attention_dv_zeroed": ("flash_attention_bwd", 2),
+                "scan_dv_zeroed": ("linear_scan_bwd", 2)}
+    whole = lambda gs, ref: math.sqrt(
+        sum(float((g.float() - c.float()).square().sum())
+            for g, c in zip(gs, ref))
+        / sum(float(c.float().square().sum()) for c in ref))
+    res = {}
+    for n_layers, limit in TRAIN_BF16_LEAF.items():
+        cut = dc.replace(cfg, n_layers=n_layers)
+        p = {**params, "layers": params["layers"][:n_layers]}
+        grads = lambda c=cut, q=p: _grads(q, c, batch, positions)[1]
+        _, g_32 = _grads(tree_map(lambda x: x.float(), p),
+                         dc.replace(cut, dtype="float32"), batch, positions)
+        g_p = _with_launchers(grads, plain)
+        g_k = grads()
+        kp = [_leaf_rel(a, b) for a, b in zip(g_k, g_p)]
+        at = dict(leaves=len(kp), limit=limit, kernel_vs_plain_max=max(kp),
+                  kernel_vs_plain_median=statistics.median(kp),
+                  worst_leaf=int(max(range(len(kp)), key=kp.__getitem__)),
+                  all_rel_kernel=whole(g_k, g_32),
+                  all_rel_plain=whole(g_p, g_32))
+        del g_k, g_32
+        for name, (kernel, i) in controls.items():
+            bad = [_leaf_rel(a, b) for a, b in zip(
+                _with_launchers(grads, _dropping(kernel, i)), g_p)]
+            at[name] = dict(max=max(bad), leaves_past_limit=sum(
+                x > limit for x in bad))
+        del g_p
+        res[n_layers] = at
+    emit(dict(phase="train_hymba_1_5b.bf16_grads", depths=res))
+    for n_layers, at in res.items():
+        if not at["kernel_vs_plain_max"] <= at["limit"]:    # NaN fails too
+            raise AssertionError(f"train bf16 gradients at {n_layers} "
+                                 f"layers: kernels against plain past the "
+                                 f"limit: {at}")
+        for name in controls:
+            if not at[name]["leaves_past_limit"]:
+                raise AssertionError(f"train bf16 gradients at {n_layers} "
+                                     f"layers: the control {name} passed "
+                                     f"the check: {at}")
+    return res
+
+
+def train_f32_copy(dev, cfg, n_layers, seq):
+    """A float32 copy of ``cfg`` cut to ``n_layers`` at full width, 2
+    microbatches of one row: one microbatch's gradients and one
+    ``train_step`` on ``dev`` (the kernels) against the same on the CPU
+    (the plain versions), within ``TRAIN_F32``."""
+    from repro_torch.data import datagen
+    from repro_torch.models import model as M, transformer
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=n_layers,
+                                n_microbatches=2)
+    cpu = torch.device("cpu")
+    params = transformer.init_params(cfg32, seed=1, device=dev)
+    params_cpu = tree_map(lambda x: x.to(cpu), params)
+    batch = next(datagen.token_batches(np.random.default_rng(3),
+                                       vocab=cfg.vocab, batch=2, seq=seq,
+                                       n_batches=1))
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, total_steps=10, warmup_steps=1)
+
+    def grads(p, where):
+        b = {k: torch.from_numpy(v[:1]).to(where) for k, v in batch.items()}
+        return _grads(p, cfg32, b, torch.arange(seq, device=where))
+
+    def one_step(p, where):
+        b = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
+        return M.train_step(p, adamw.init_opt(p), b, cfg=cfg32,
+                            opt_cfg=opt_cfg)
+
+    lk, gk = grads(params, dev)
+    lc, gc = grads(params_cpu, cpu)
+    grad_err = max(float((a.cpu() - b).abs().max())
+                   / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(gk, gc))
+    del gk, gc
+    pk, _, mk = one_step(params, dev)
+    pc, _, mc = one_step(params_cpu, cpu)
+    lr = float(mc["lr"])
+    past = total = 0
+    worst = 0.0
+    for a, b in zip(tree_leaves(pk), tree_leaves(pc)):
+        diff = (a.cpu() - b).abs()
+        worst = max(worst, float(diff.max()))
+        past += int((diff > 1e-6).sum())
+        total += diff.numel()
+    res = dict(layers=n_layers, loss_card=float(lk), loss_cpu=float(lc),
+               grad_max_err_share=grad_err,
+               step_loss=(float(mk["loss"]), float(mc["loss"])),
+               step_gnorm=(float(mk["grad_norm"]), float(mc["grad_norm"])),
+               param_max_err=worst, param_share_past_1e6=past / total,
+               lr=lr, limits=TRAIN_F32)
+    lim = TRAIN_F32
+    ok = (abs(float(lk) - float(lc)) <= lim["loss_rtol"] * abs(float(lc))
+          and grad_err <= lim["grad_rtol"]
+          and abs(float(mk["loss"]) - float(mc["loss"]))
+          <= lim["loss_rtol"] * abs(float(mc["loss"]))
+          and abs(float(mk["grad_norm"]) - float(mc["grad_norm"]))
+          <= lim["gnorm_rtol"] * float(mc["grad_norm"])
+          and worst <= 2.5 * lr and past <= lim["param_share"] * total)
+    if not ok:
+        raise AssertionError(f"train float32 copy: card != CPU: {res}")
+    del params, params_cpu, pk, pc
+    _free_card(dev)
+    return res
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3474,26 +4148,45 @@ def main(argv) -> int:
               ptxas=ptxas_summary(log)))
     print(card_line(), flush=True)
 
+    t0 = time.perf_counter()
     rows = [check_scalegate_merge(dev), check_scalegate_merge_stacked(dev),
             check_segment_aggregate(dev), check_window_join(dev),
-            check_flash_attention(dev), check_linear_scan(dev)]
-    emit(dict(phase="kernels", kernels=rows))
+            check_flash_attention(dev), check_linear_scan(dev),
+            check_flash_attention_bwd(dev), check_linear_scan_bwd(dev)]
+    emit(dict(phase="kernels", seconds=time.perf_counter() - t0,
+              kernels=rows))
 
     # The main path: each pipeline phase zeroes the counts right before its
-    # card run and reads them right after it.
+    # card run and reads them right after it; the processes of the
+    # launchers and of the training phase report their own counts.
+    import concurrent.futures
+    import tempfile
     phases = []
-    for run in (q1_wordcount, q3_scalejoin, q1_persistent, q3_persistent,
-                q1_ingest_tier, q1_recovery, q1_mesh, q1_mesh_persistent,
-                general_mesh, q3_mesh, q1_mesh_recovery, launchers,
-                functools.partial(serve_full_width, arch="qwen3-14b"),
-                functools.partial(serve_full_width, arch="rwkv6-7b"),
-                functools.partial(serve_full_width, arch="deepseek-moe-16b"),
-                functools.partial(serve_full_width, arch="hymba-1.5b")):
+
+    def phase(run):
         t0 = time.perf_counter()
         phases.append(run(dev))
         phases[-1]["seconds"] = time.perf_counter() - t0
         emit(phases[-1])
-    launches = {name: sum(ph["launches"][name] for ph in phases)
+
+    for run in (q1_wordcount, q3_scalejoin, q1_persistent, q3_persistent,
+                q1_ingest_tier, q1_recovery, q1_mesh, q1_mesh_persistent,
+                general_mesh, q3_mesh, q1_mesh_recovery):
+        phase(run)
+    with tempfile.TemporaryDirectory() as d, \
+            concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # phase 19's two training processes run beside the launchers
+        # phase's, which are host-bound and hold little of the card's
+        # memory; the serving phases start once both are done
+        ck = str(pathlib.Path(d) / "ck")
+        trained = pool.submit(train_launchers, dev, ck)
+        phase(launchers)
+        runs = trained.result()
+        for arch in ("qwen3-14b", "rwkv6-7b", "deepseek-moe-16b",
+                     "hymba-1.5b"):
+            phase(functools.partial(serve_full_width, arch=arch))
+        phase(lambda dev: train_hymba_1_5b(dev, runs, ck))
+    launches = {name: sum(ph["launches"].get(name, 0) for ph in phases)
                 for name in dispatch.registered()}
     if not all(launches.values()):
         raise AssertionError(f"a kernel never launched on the main path: "
@@ -3511,6 +4204,7 @@ def main(argv) -> int:
                              "max_active_clusters", "prefill",
                              "prefill_t1024", "chunk_sweep_ms",
                              "decode_split_ms", "deepseek", "hymba",
+                             "rwkv6", "limit_used", "bitwise_repeat",
                              "push_cases",
                              "max_abs_err_bf16", "kernels_per_call",
                              "hot_cell_hits", "even", "q3",

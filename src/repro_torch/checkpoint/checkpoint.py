@@ -12,8 +12,9 @@ joins the pending one, and a second save joins the first (one pending
 save at a time per ``Checkpointer``).
 
 Leaves are numbered in the reference's flatten order (``flatten``): dict
-keys sorted, dataclass fields in declared order, tuples and lists in
-order, ``None`` an empty subtree.  bfloat16 and float8 leaves, which
+keys sorted, dataclass fields in declared order, tuples (NamedTuples
+such as ``adamw.OptState`` among them) and lists in order, ``None`` an
+empty subtree.  bfloat16 and float8 leaves, which
 ``.npy`` has no codec for, are stored as unsigned integer views with a
 dtype tag (``"bfloat16"``) and restored through torch's view of the same
 bits.  ``restore`` returns torch tensors on the CPU.
@@ -76,7 +77,9 @@ def unflatten(like: Any, leaves: List[Any]) -> Any:
             built = {k: build(t[k]) for k in sorted(t)}
             return {k: built[k] for k in t}
         if isinstance(t, (tuple, list)):
-            return type(t)(build(v) for v in t)
+            items = [build(v) for v in t]
+            return (type(t)(*items) if hasattr(t, "_fields")   # NamedTuple
+                    else type(t)(items))
         return next(it)
 
     out = build(like)

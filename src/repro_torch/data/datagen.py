@@ -9,6 +9,8 @@ reference generator, here as the port's ``TupleBatch``es on ``device``.
                   nearby-word pairs at distance <= ``pair_dist``.
 * ``scalejoin`` — Q3-Q5: two streams, payload attributes uniform in
                   [1, 10000].
+* ``token_batches`` — the training launcher's LM corpus, numpy batches
+                  as the reference yields them.
 """
 
 from __future__ import annotations
@@ -80,3 +82,16 @@ def scalejoin(rng: np.random.Generator, *, n_ticks: int, tick: int,
                               ).astype(np.float32)
         yield T.make_batch(taus, payload, keys=keys, source=src, kmax=k_virt,
                            device=device)
+
+
+def token_batches(rng: np.random.Generator, *, vocab: int, batch: int,
+                  seq: int, n_batches: int):
+    """Synthetic LM corpus: Zipf unigrams with local bigram structure."""
+    for _ in range(n_batches):
+        x = rng.zipf(1.2, (batch, seq + 1)).astype(np.int64) % vocab
+        x = np.maximum(x, 1)
+        yield {
+            "inputs": x[:, :-1].astype(np.int32),
+            "labels": x[:, 1:].astype(np.int32),
+            "mask": np.ones((batch, seq), np.float32),
+        }

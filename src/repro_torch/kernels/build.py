@@ -28,7 +28,8 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("scalegate_merge.cu", "segment_aggregate.cu", "window_join.cu",
-           "flash_attention.cu", "linear_scan.cu")
+           "flash_attention.cu", "linear_scan.cu", "flash_attention_bwd.cu",
+           "linear_scan_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_torch_kernels.so"
@@ -60,6 +61,15 @@ PROTOTYPES = {
     # r, k, v, w, u, u_rows, s0, o, s_out, bh, t_len, dk, dv, chunk, stream
     "repro_linear_scan": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
                           _I, _I, _P),
+    # q, k, v, o, do, dq, dk, dv, scratch, batch, hq, hkv, len_q, len_kv,
+    # d, causal, window, dtype, scale, stream
+    "repro_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                  _I, _I, _I, _I, _I, _I, _I, _I,
+                                  ctypes.c_float, _P),
+    # r, k, v, w, u, u_rows, s0, do, ds_t, scratch, dr, dk, dv, dw, du,
+    # ds0, bh, t_len, dk, dv, stream
+    "repro_linear_scan_bwd": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                              _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

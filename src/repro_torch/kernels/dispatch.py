@@ -7,6 +7,11 @@ version for CPU tensors and launches its CUDA kernel for CUDA tensors.
 There is no backend switch, so nothing can send a CUDA tensor to the plain
 version; a CUDA launch that fails raises.
 
+A backward kernel (``flash_attention_bwd``, ``linear_scan_bwd``) is an
+entry like any other; its ``replaces`` names the reference function whose
+``jax.grad`` it computes, since the reference has no backward Pallas
+kernel.
+
 Each entry counts its launches in a plain integer, ``Kernel.launches``,
 incremented once per kernel launch and nowhere else, so a run can show that
 its path went through the kernel.  The ingest tier launches from several
@@ -34,7 +39,10 @@ class Kernel:
     name: str
     plain: Callable      # plain PyTorch version (CPU tensors)
     cuda: Callable       # launcher of the CUDA kernel (CUDA tensors)
-    replaces: str        # file:line of the Pallas TPU kernel it replaces
+    replaces: str        # file:line of the Pallas TPU kernel it replaces;
+                         # a backward kernel, which no Pallas kernel has,
+                         # names the reference function whose jax.grad
+                         # it computes
     source: str          # CUDA source, relative to the repo root
     launches: int = 0
 

@@ -25,6 +25,17 @@ Tolerance between the two realizations: 2e-5 in float32 (the reference's
 own); in bfloat16 p is rounded against a chunk's or the running max in
 the kernel and against the row max in the plain version, so they agree
 to bfloat16's precision (chip_smoke.py states the bound it checks).
+
+The backward is a kernel of its own, ``flash_attention_bwd``
+(``csrc/flash_attention_bwd.cu``; plain version
+``ref.flash_attention_bwd_ref``), dispatched the same way.
+``flash_attention`` is the differentiable entry the models call: with no
+input needing a gradient it is ``flash_attention_op`` itself, so the
+serving path and its CUDA graphs launch exactly what they did; otherwise a
+``torch.autograd.Function`` runs the forward through
+``flash_attention_op`` and its backward through ``flash_attention_bwd_op``.
+A gradient through a cached call (``q_offset`` or ``kv_index``) raises:
+training attends without a cache, as the reference's does.
 """
 
 from __future__ import annotations
@@ -34,7 +45,8 @@ import struct
 import torch
 
 from repro_torch.kernels import build, dispatch
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                      flash_attention_ref)
 
 HEAD_DIMS = (16, 32, 64, 128, 160, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -161,3 +173,86 @@ flash_attention_op = dispatch.register(dispatch.Kernel(
     replaces="src/repro/kernels/flash_attention/flash_attention.py:108",
     source="src/repro_torch/kernels/csrc/flash_attention.cu",
 ))
+
+
+def _bwd_cuda(q, k, v, o, do, *, causal: bool = True, window=None,
+              n_rep: int = 1):
+    flat = q.dim() == 3
+    q4, k4, v4, o4, do4 = (x[None] if flat else x for x in (q, k, v, o, do))
+    b, hq, sq, d = q4.shape
+    hkv, skv = k4.shape[1], k4.shape[2]
+    dtype, dev = q.dtype, q.device
+    if dtype not in DTYPES or d not in HEAD_DIMS or hq != hkv * n_rep:
+        raise ValueError(f"flash_attention_bwd: {dtype}, head size {d}, "
+                         f"{hq} query heads over {hkv} x {n_rep}")
+    for name, x, shape in (("q", q4, (b, hq, sq, d)), ("o", o4, (b, hq, sq, d)),
+                           ("do", do4, (b, hq, sq, d)),
+                           ("k", k4, (b, hkv, skv, d)),
+                           ("v", v4, (b, hkv, skv, d))):
+        dispatch.check(name, x, dtype, shape, dev)
+    if window is not None and window < 1:
+        raise ValueError("window must be None or >= 1")
+    dq, dk, dv = (torch.empty_like(x) for x in (q4, k4, v4))
+    # each query row's max, sum and D_i; each query head's share of dK, dV
+    scratch = torch.empty(3 * b * hq * sq + 2 * b * hq * skv * d,
+                          dtype=torch.float32, device=dev)
+    if sq:
+        build.launch("flash_attention_bwd", dev, q4.data_ptr(),
+                     k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
+                     do4.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                     dv.data_ptr(), scratch.data_ptr(), b, hq, hkv, sq, skv,
+                     d, int(causal), 0 if window is None else int(window),
+                     DTYPES[dtype], d ** -0.5)
+    else:
+        dk.zero_()
+        dv.zero_()
+    return (dq[0], dk[0], dv[0]) if flat else (dq, dk, dv)
+
+
+flash_attention_bwd_op = dispatch.register(dispatch.Kernel(
+    name="flash_attention_bwd",
+    plain=flash_attention_bwd_ref,
+    cuda=_bwd_cuda,
+    replaces="jax.grad of src/repro/kernels/flash_attention/ref.py:6 "
+             "attention_ref",
+    source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``flash_attention_op`` (no cache) with ``flash_attention_bwd_op``
+    as its gradient.  q, k and v may be strided views (the model's
+    transposed activations); the backward reads contiguous copies and
+    returns contiguous gradients of the same shapes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, n_rep):
+        o = flash_attention_op(q, k, v, causal=causal, window=window,
+                               n_rep=n_rep)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.args = dict(causal=causal, window=window, n_rep=n_rep)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = (x.contiguous() for x in ctx.saved_tensors)
+        dq, dk, dv = flash_attention_bwd_op(q, k, v, o, do.contiguous(),
+                                            **ctx.args)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    n_rep: int = 1, q_offset=None, kv_index=None):
+    """``flash_attention_op`` with a gradient: through ``_FlashAttention``
+    when gradients are on and q, k or v needs one, else
+    ``flash_attention_op`` itself (which saves nothing)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if q_offset is not None or kv_index is not None:
+            raise NotImplementedError(
+                "flash_attention: no gradient through a cached call "
+                "(q_offset or kv_index); training attends without a cache")
+        return _FlashAttention.apply(q, k, v, causal, window, n_rep)
+    return flash_attention_op(q, k, v, causal=causal, window=window,
+                              n_rep=n_rep, q_offset=q_offset,
+                              kv_index=kv_index)

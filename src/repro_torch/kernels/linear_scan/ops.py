@@ -15,6 +15,15 @@ sequential body.  The domain is w in [0, 1].
 
 Tolerance between the two realizations: 1e-4, the reference's (the sums
 over Dk and the chunk's steps run in another order).
+
+The backward is a kernel of its own, ``linear_scan_bwd``
+(``csrc/linear_scan_bwd.cu``; plain version ``ref.linear_scan_bwd_ref``),
+with the same dispatch: the plain version for CPU tensors, the CUDA
+kernel for CUDA tensors.  ``linear_scan`` is the differentiable entry the
+models call: with no input needing a gradient it is ``linear_scan_op``
+itself, so the serving path and its CUDA graphs launch exactly what they
+did; otherwise a ``torch.autograd.Function`` runs the forward through
+``linear_scan_op`` and its backward through ``linear_scan_bwd_op``.
 """
 
 from __future__ import annotations
@@ -22,7 +31,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build, dispatch
-from repro_torch.kernels.linear_scan.ref import CHUNK, linear_scan_ref
+from repro_torch.kernels.linear_scan.ref import (CHUNK, linear_scan_bwd_ref,
+                                                  linear_scan_ref)
 
 KEY_DIMS = (8, 16, 32, 64, 128)
 SWEEP_CHUNKS = (CHUNK, 16)        # chunk lengths built at Dk 64
@@ -77,3 +87,79 @@ linear_scan_op = dispatch.register(dispatch.Kernel(
     replaces="src/repro/kernels/linear_scan/linear_scan.py:104",
     source="src/repro_torch/kernels/csrc/linear_scan.cu",
 ))
+
+
+def bwd_scratch_floats(bh: int, t: int, dk: int, dv: int) -> int:
+    """The backward kernel's float32 scratch: the state at the start of
+    each chunk of 512 / Dk steps (``Shape::C`` in
+    ``csrc/linear_scan_bwd.cu``), the dk/dw/dr partials of each 32-column
+    tile, v_t . do_t."""
+    chunks = -(-t // (512 // dk))
+    tiles = -(-dv // 32)
+    return bh * chunks * dk * dv + 3 * tiles * bh * t * dk + bh * t
+
+
+def _bwd_cuda(r, k, v, w, u=None, s0=None, do=None, ds_t=None):
+    u_rows = validate(r, k, v, w, u, s0)
+    bh, t, dk = r.shape
+    dv = v.shape[-1]
+    dev, f32 = r.device, torch.float32
+    if do is None:
+        do = torch.zeros((bh, t, dv), dtype=f32, device=dev)
+    dispatch.check("do", do, f32, (bh, t, dv), dev)
+    if ds_t is not None:
+        dispatch.check("ds_t", ds_t, f32, (bh, dk, dv), dev)
+    dr, dkk, dw = (torch.empty_like(x) for x in (r, k, w))
+    dvv = torch.empty_like(v)
+    du = None if u is None else torch.empty_like(u)
+    ds0 = torch.empty((bh, dk, dv), dtype=f32, device=dev)
+    scratch = torch.empty(bwd_scratch_floats(bh, t, dk, dv), dtype=f32,
+                          device=dev)
+    build.launch("linear_scan_bwd", dev, r.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), w.data_ptr(), _ptr(u), u_rows, _ptr(s0),
+                 do.data_ptr(), _ptr(ds_t), scratch.data_ptr(),
+                 dr.data_ptr(), dkk.data_ptr(), dvv.data_ptr(),
+                 dw.data_ptr(), _ptr(du), ds0.data_ptr(), bh, t, dk, dv)
+    return dr, dkk, dvv, dw, du, ds0
+
+
+linear_scan_bwd_op = dispatch.register(dispatch.Kernel(
+    name="linear_scan_bwd",
+    plain=linear_scan_bwd_ref,
+    cuda=_bwd_cuda,
+    replaces="jax.grad of src/repro/kernels/linear_scan/ref.py:7 "
+             "linear_scan_ref",
+    source="src/repro_torch/kernels/csrc/linear_scan_bwd.cu",
+))
+
+
+class _LinearScan(torch.autograd.Function):
+    """``(o, S_T) = linear_scan_op(...)`` with ``linear_scan_bwd_op`` as
+    its gradient.  Inputs are float32 and contiguous, as the kernel takes
+    them; a gradient left unused arrives as None (no zeros are made)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        return linear_scan_op(r, k, v, w, u, s0)
+
+    @staticmethod
+    def backward(ctx, do, ds_t):
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        dr, dk, dv, dw, du, ds0 = linear_scan_bwd_op(
+            r, k, v, w, u, s0,
+            None if do is None else do.contiguous(),
+            None if ds_t is None else ds_t.contiguous())
+        return (dr, dk, dv, dw, du if ctx.needs_input_grad[4] else None,
+                ds0 if ctx.needs_input_grad[5] else None)
+
+
+def linear_scan(r, k, v, w, u=None, s0=None):
+    """``linear_scan_op`` with a gradient: through ``_LinearScan`` when
+    gradients are on and an input needs one, else ``linear_scan_op``
+    itself (which saves nothing)."""
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in (r, k, v, w, u, s0)):
+        return _LinearScan.apply(r, k, v, w, u, s0)
+    return linear_scan_op(r, k, v, w, u, s0)

@@ -10,6 +10,10 @@ recurrence, ``u`` may hold one row per head (``[H, Dk]`` with ``BH % H ==
 ``linear_scan_chunked_ref`` renders the CUDA kernel's chunked body in
 plain PyTorch, for the tests only: the same equations and chunk length,
 every decay a running product of w over the steps it spans.
+
+``linear_scan_bwd_ref`` is the plain version of the backward kernel: the
+reverse recurrence written out (not autograd of the forward), the
+gradient ``jax.grad`` takes through the reference's ``lax.scan``.
 """
 
 from __future__ import annotations
@@ -75,3 +79,59 @@ def linear_scan_chunked_ref(r, k, v, w, u=None, s0=None, chunk: int = CHUNK):
         s = p[:, -1, :, None] * s + torch.einsum("bsk,bsv->bkv", kc * g, vc)
     o = torch.cat(outs, dim=1) if outs else r.new_zeros((bh, 0, dv))
     return o.to(dtype), s
+
+
+def linear_scan_bwd_ref(r, k, v, w, u=None, s0=None, do=None, ds_t=None):
+    """Gradients of ``linear_scan_ref``'s ``(o, S_T)`` given ``do``
+    (``[BH, T, Dv]``) and ``ds_t`` (``[BH, Dk, Dv]``; None: S_T unused).
+    -> ``(dr, dk, dv, dw, du, ds0)``, each in its input's dtype (``du``
+    None without u, ``ds0`` float32).  With ``G_t`` the gradient of the
+    state after step t (``G_T = dS_T``) and ``S_{t-1}`` the state before
+    it, walking t from T down to 1::
+
+        dr_t = S_{t-1} do_t + u * k_t (v_t . do_t)
+        dk_t = G_t v_t + r_t * u (v_t . do_t)
+        dv_t = G_t^T k_t + (r_t . u * k_t) do_t
+        dw_t = rowsum(G_t * S_{t-1})
+        du  += r_t * k_t (v_t . do_t)
+        G_{t-1} = w_t * G_t + r_t^T do_t
+
+    and ``ds0 = G_0``.  ``du`` sums over the batch rows that share a row
+    of u (row bh reads ``u[bh % H]``)."""
+    bh, t, dk = r.shape
+    dv = v.shape[-1]
+    f32 = torch.float32
+    s = (torch.zeros((bh, dk, dv), dtype=f32, device=r.device)
+         if s0 is None else s0.float())
+    uu = (None if u is None
+          else u.float().repeat(bh // u.shape[0], 1))           # [BH, Dk]
+    r_, k_, v_, w_ = (x.float() for x in (r, k, v, w))
+    do_ = (torch.zeros((bh, t, dv), dtype=f32, device=r.device)
+           if do is None else do.float())
+    before = []                                      # S_{t-1}, forward
+    for i in range(t):
+        before.append(s)
+        s = w_[:, i, :, None] * s + k_[:, i, :, None] * v_[:, i, None, :]
+    g = (torch.zeros((bh, dk, dv), dtype=f32, device=r.device)
+         if ds_t is None else ds_t.float().clone())
+    dr, dkk, dvv, dw = (torch.zeros((bh, t, n), dtype=f32, device=r.device)
+                        for n in (dk, dk, dv, dk))
+    du = None if uu is None else torch.zeros_like(uu)
+    for i in reversed(range(t)):
+        sp, rt, kt, vt, wt, dot = (before[i], r_[:, i], k_[:, i], v_[:, i],
+                                   w_[:, i], do_[:, i])
+        dr[:, i] = torch.einsum("bkv,bv->bk", sp, dot)
+        dkk[:, i] = torch.einsum("bkv,bv->bk", g, vt)
+        dvv[:, i] = torch.einsum("bkv,bk->bv", g, kt)
+        dw[:, i] = (g * sp).sum(-1)
+        if uu is not None:
+            vdo = (vt * dot).sum(-1, keepdim=True)             # [BH, 1]
+            dr[:, i] += uu * kt * vdo
+            dkk[:, i] += rt * uu * vdo
+            dvv[:, i] += (rt * uu * kt).sum(-1, keepdim=True) * dot
+            du += rt * kt * vdo
+        g = wt[:, :, None] * g + rt[:, :, None] * dot[:, None, :]
+    if du is not None:
+        du = du.view(bh // u.shape[0], u.shape[0], dk).sum(0).to(u.dtype)
+    return (dr.to(r.dtype), dkk.to(k.dtype), dvv.to(v.dtype),
+            dw.to(w.dtype), du, g)

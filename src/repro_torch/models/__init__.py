@@ -1,7 +1,9 @@
-"""Model zoo of the serving path: dense GQA attention and RWKV6 blocks.
+"""Model zoo of the serving and training paths: dense GQA attention,
+RWKV6, MoE and hybrid attention+SSM blocks.
 
 Held against ``src/repro/models`` (``config``, ``layers``, ``attention``,
-``rwkv``, ``moe``, ``ssm``, ``transformer``, ``model``); ``convert``
-carries the reference's parameter trees and caches across.  Sharding and
-training are not ported yet (ROADMAP.md).
+``rwkv``, ``moe``, ``ssm``, ``transformer``, ``model``, ``scan_utils``);
+``convert`` carries the reference's parameter trees, optimizer states
+and caches across, both ways.  Sharding is not ported yet (ROADMAP.md
+queue 1 item 10).
 """

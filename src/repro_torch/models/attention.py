@@ -5,7 +5,9 @@ Held against ``src/repro/models/attention.py``.  The reference computes
 attention with its own jnp flash loop (``blocked_attention``, and
 ``decode_attention`` for one query); the port computes the same function
 with ``kernels/flash_attention`` in all three of its branches: prefill
-without a cache, prefill into a cache and decode.
+without a cache, prefill into a cache and decode.  The first is also the
+training call: its gradient is the ``flash_attention_bwd`` kernel
+(``ops.flash_attention``); the cached branches take no gradient.
 
 The cache keeps the reference's layout ``[B, max_seq, KV, Dh]`` and is
 written in place.  Each batch row may sit at its own depth: ``positions``
@@ -23,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention.ops import flash_attention_op
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import init_dense, rms_norm, rope
 
@@ -76,12 +78,12 @@ def attn_forward(p, x, positions, cfg: ModelConfig, *,
         rows, pos, q_offset, kv_index = index
         ck[rows, pos] = k.to(ck.dtype)
         cv[rows, pos] = v.to(cv.dtype)
-        out = flash_attention_op(
+        out = flash_attention(
             q.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2),
             causal=True, window=window, n_rep=n_rep, q_offset=q_offset,
             kv_index=kv_index)
     else:
-        out = flash_attention_op(q.transpose(1, 2), k.transpose(1, 2),
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                  v.transpose(1, 2), causal=True,
                                  window=window, n_rep=n_rep)
     out = out.transpose(1, 2).reshape(b, s, cfg.q_dim)

@@ -1,8 +1,11 @@
 """Model / run configuration for the assigned architecture zoo.
 
-Held against ``src/repro/models/config.py``: a copy.  ``scan_layers``,
-``remat``, ``n_microbatches`` and ``analysis_unroll`` are knobs of the
-reference's jitted programs; the port's eager layer loop reads none of them.
+Held against ``src/repro/models/config.py``: a copy.  ``remat`` (a
+checkpoint per block while gradients are on) and ``n_microbatches``
+(``model.train_step``) steer the training path; ``scan_layers`` only
+picks the reference's stacked layout in ``convert.to_reference``, and
+``analysis_unroll`` is a knob of the reference's jitted programs that the
+port's eager layer loop does not read.
 """
 
 from __future__ import annotations

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.linear_scan.ops import linear_scan_op
+from repro_torch.kernels.linear_scan.ops import linear_scan
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import init_dense, rms_norm
 
@@ -83,7 +83,7 @@ def time_mix_forward(p, x, cfg: ModelConfig, shift_state, wkv_state):
         return (t.float().view(b, s, h, hd).permute(0, 2, 1, 3)
                 .reshape(b * h, s, hd).contiguous())
 
-    y, wkv = linear_scan_op(heads(r), heads(k), heads(v), heads(w),
+    y, wkv = linear_scan(heads(r), heads(k), heads(v), heads(w),
                             p["u"].float().view(h, hd),
                             wkv_state.reshape(b * h, hd, hd).contiguous())
     y = y.view(b, h, s, hd).permute(0, 2, 1, 3).reshape(b, s, d)

@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.linear_scan.ops import linear_scan_op
+from repro_torch.kernels.linear_scan.ops import linear_scan
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import init_dense
 
@@ -77,7 +77,7 @@ def ssm_forward(p, x, cfg: ModelConfig, state=None):
                             device=x.device)
     r, k, v = _heads(cc), _heads(bb), _heads(xv)
     a = decay.permute(0, 2, 1).reshape(b * h, sq, 1)
-    o, s_out = linear_scan_op(r, k, v, a.expand(b * h, sq, ns).contiguous(),
+    o, s_out = linear_scan(r, k, v, a.expand(b * h, sq, ns).contiguous(),
                               None, state.reshape(b * h, ns, pdim).float()
                               .contiguous())
     y = a * o + (r * k).sum(-1, keepdim=True) * v            # C_t S_t

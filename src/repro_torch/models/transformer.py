@@ -1,17 +1,26 @@
-"""Decoder stack assembly: block dispatch by arch kind, embeddings/unembed.
+"""Decoder stack assembly: block dispatch by arch kind, embeddings/unembed,
+the training loss.
 
 Held against ``src/repro/models/transformer.py`` for the kinds ``dense``
 (with ``window_pattern`` and ``frontend="embedding_stub"``), ``moe``,
 ``rwkv`` and ``hybrid`` (attention and SSM heads side by side on one
 input, ``x + 0.5 * (attn + ssm)``).
-Layers are a Python list walked in order; the reference's
-``scan_layers``/``remat`` have no counterpart in eager code.  Parameters
-are a dict with ``layers`` a list of per-layer dicts; caches and recurrent
-states keep the reference's stacked ``[L, B, ...]`` layout (rwkv's a dict,
-hybrid's one float32 ``[L, B, H, n_state, head_dim]`` tensor), and
-``forward`` updates them in place (the reference returns new arrays) and
-returns them with the reference's ``aux``, the MoE tokens dropped over the
-layers.  With a slot pool (``lanes``) an MoE layer routes each batch row
+Layers are a Python list walked in order (the reference's ``scan_layers``
+stacks them; ``convert.to_reference`` gives that layout).  ``cfg.remat``
+is the reference's ``jax.checkpoint(run_block)``: while gradients are on,
+each block runs under non-reentrant ``torch.utils.checkpoint``, so its
+backward recomputes the block's forward (the model kernels launch twice a
+block, forward and recompute, and their backward kernels once).
+Parameters are a dict with ``layers`` a list of per-layer dicts; caches
+and recurrent states keep the reference's stacked ``[L, B, ...]`` layout
+(rwkv's a dict, hybrid's one float32 ``[L, B, H, n_state, head_dim]``
+tensor), and ``forward`` updates them in place (the reference returns new
+arrays) and returns them with the reference's ``aux``, the MoE tokens
+dropped over the layers.  Without states (training, a prefill that keeps
+none) rwkv and hybrid layers start from zeros and no state is kept or
+returned: nothing is written in place, so a training step's graph holds
+no copy into a state buffer.  With a slot pool (``lanes``) an MoE layer
+routes each batch row
 as a group of its own, as the reference's serving engine decodes each lane
 under its ``vmap``; otherwise the ``[B, S]`` block is one group, as in the
 reference's ``forward``.  ``live`` (bool ``[B]``) marks the rows that are
@@ -21,7 +30,8 @@ not counted.
 ``init_params`` draws from an explicit ``torch.Generator`` on the target
 device: the reference's distributions, not JAX's bits (the tests carry
 the reference's own parameters across with ``convert.from_reference``).
-``loss_fn`` (training) is not ported yet.
+``loss_fn`` is the reference's masked next-token cross-entropy over a
+float32 log-softmax of the padded vocab.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import device as _device
 from repro_torch.models import attention, moe as moe_mod, rwkv as rwkv_mod
@@ -125,10 +136,12 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None):
     """Random parameters from ``torch.Generator(device).manual_seed(seed)``
     with the reference's distributions (``init_dense``: normal over
     sqrt(fan_in), embeddings 0.02), made on ``device`` (default: the
-    card)."""
+    card; ``"meta"``: shapes and dtypes only)."""
     check_kind(cfg)
     dev = _device.resolve(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    # on the meta device (model.abstract_params) nothing is drawn
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     dtype = getattr(torch, cfg.dtype)
     params: Dict[str, Any] = {
         "embedding": init_dense(gen, (cfg.padded_vocab, cfg.d_model),
@@ -188,27 +201,38 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, caches=None,
     maps batch rows to rows of ``caches``/``states`` (a slot pool); left
     out, row b is row b.  ``live`` (bool [B], with ``lanes``): the rows
     whose MoE drops count.  Returns (logits, caches, states, aux); caches
-    and states are updated in place (rwkv and hybrid without states start
-    from zeros)."""
+    and states are updated in place.  Without ``states`` the rwkv and
+    hybrid layers start from zeros and the returned states are None."""
     check_kind(cfg)
     if cfg.frontend == "token":
         x = embed(inputs, params["embedding"])
     else:
         x = inputs.to(getattr(torch, cfg.dtype))
     windows = layer_windows(cfg)
+    zero_state = None
     if cfg.kind == "rwkv" and states is None:
-        _, states = init_caches(cfg, x.shape[0], 0, x.device)
+        zero_state = rwkv_mod.init_rwkv_state(cfg, x.shape[0], x.device)
     index = (attention.cache_index(positions, x.shape[0], lanes)
              if caches is not None and cfg.kind != "rwkv" else None)
+    remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, layer_p in enumerate(params["layers"]):
         cache = (None if caches is None
                  else {k: v[i] for k, v in caches.items()})
-        state = None if states is None else _state_at(states, i, lanes)
-        x, _, new_state, layer_aux = block_forward(
-            layer_p, x, positions, cfg,
-            window=None if windows is None else windows[i], cache=cache,
-            state=state, index=index, per_row=lanes is not None, live=live)
+        state = (zero_state if states is None
+                 else _state_at(states, i, lanes))
+        kw = dict(window=None if windows is None else windows[i],
+                  cache=cache, state=state, index=index,
+                  per_row=lanes is not None, live=live)
+        if remat:
+            # the reference's jax.checkpoint(run_block): the backward
+            # recomputes the block
+            x, _, new_state, layer_aux = torch.utils.checkpoint.checkpoint(
+                block_forward, layer_p, x, positions, cfg,
+                use_reentrant=False, preserve_rng_state=False, **kw)
+        else:
+            x, _, new_state, layer_aux = block_forward(
+                layer_p, x, positions, cfg, **kw)
         if layer_aux is not None:
             aux = aux + layer_aux
         if states is not None:
@@ -216,3 +240,14 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, caches=None,
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(x, params.get("unembed", params["embedding"]))
     return logits, caches, states, aux
+
+
+def loss_fn(params, cfg: ModelConfig, inputs, labels, mask, positions):
+    """Masked next-token cross-entropy: ``-sum(ll * mask) / max(sum(mask),
+    1)`` with ``ll`` the label's float32 log-softmax over the padded vocab.
+    -> (loss, aux), aux the MoE tokens dropped (float32)."""
+    logits, _, _, aux = forward(params, cfg, inputs, positions)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, labels.long()[..., None])[..., 0]
+    n = torch.clamp(mask.sum(), min=1.0)
+    return -(ll * mask).sum() / n, aux
