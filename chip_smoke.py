@@ -32,10 +32,15 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
                  over the chunk length); the backward kernels
                  flash_attention_bwd (hymba-1.5b's, qwen3-14b's,
                  deepseek-moe-16b's and gemma3's training shapes, D 16,
-                 32 and 160, rows that see no key) and linear_scan_bwd
-                 (hymba-1.5b's SSM, rwkv6-7b's at T 128 and 1024, strong
-                 and zero decays, every key size), each also against
-                 autograd of the plain forward and twice bit for bit.
+                 32 and 160, rows that see no key, the wgmma body's
+                 64-row tile edges, n_rep 8, a window across tiles,
+                 batch 2, the model's strided views through the
+                 autograd Function; with and without the forward's
+                 log-sum-exp) and linear_scan_bwd (hymba-1.5b's SSM also
+                 at T 129 and 1000, rwkv6-7b's at T 128 and 1024, strong
+                 and zero decays, every key size, Dv 128, a ragged last
+                 chunk), each also against autograd of the plain forward
+                 and twice bit for bit.
 3. ``q1_wordcount`` — the Q1 wordcount VSN pipeline with a mid-stream
                  reconfiguration (4 -> 16 instances), equal to the same run
                  on the CPU (outputs, switch flags, instance loads), with 0
@@ -171,8 +176,11 @@ times, in another checkout and in this one, in turns (parent, this, this,
 parent) on one card: linear_scan's rows (decode, prefill T 128 and T
 1024), segment_aggregate as ``aggregate._scatter_reduce`` issues it at
 Q1's Zipf shape, window_join as ``join.band_join_counts`` issues it at
-the Q3 and bench shapes, Q1's eager tick and the general O+ tick's
-(``turn_rows``).
+the Q3 and bench shapes, Q1's eager tick and the general O+ tick's, the
+two backward kernels at hymba-1.5b's (and linear_scan_bwd at rwkv6-7b's)
+training shapes, and one forward and backward through each model
+kernel's autograd Function as the train step pays it (``turn_rows``);
+names after the checkout pick some of these rows.
 
     python3 chip_smoke.py --drill-times
 
@@ -1311,47 +1319,107 @@ def general_tick_row(dev) -> dict:
                           kernel=MERGE_KERNEL_SYMBOL)
 
 
-def turn_rows(dev) -> dict:
+def backward_rows(dev) -> dict:
+    """The two backward kernels as the train step calls them, on the same
+    data in every tree (seed 24): ``flash_attention_bwd_op`` at hymba-1.5b's
+    bf16 training shape (q [1, 25, 128, 64], n_rep 5, causal; without the
+    forward's log-sum-exp, which only the newer tree takes),
+    ``linear_scan_bwd_op`` at hymba's SSM (BH 25, T 128, Dk 16, Dv 64, s0)
+    and rwkv6-7b's (BH 64, T 128, 64 x 64, u, s0, dS_T), and one forward
+    and backward through ``ops.flash_attention`` (the model's transposed
+    [B, S, H, D] views) and ``ops.linear_scan`` under
+    ``torch.autograd.grad``, wrapper copies included."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.linear_scan import ops as ls
+    gen = torch.Generator(device=dev).manual_seed(24)
+    bf16 = torch.bfloat16
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    qs, ks, vs, dos = (rnd(1, 128, h, 64).to(bf16) for h in (25, 5, 5, 25))
+    q, k, v, do = (x.transpose(1, 2) for x in (qs, ks, vs, dos))
+    kw = dict(causal=True, window=None, n_rep=5)
+    # the kernel alone on contiguous tensors (the older tree takes no other)
+    qc, kc, vc, doc = (x.contiguous() for x in (q, k, v, do))
+    o = fa.flash_attention_op(qc, kc, vc, **kw)
+    leaves = [x.detach().clone().requires_grad_() for x in (qs, ks, vs)]
+
+    def attn_fwd_bwd():
+        out = fa.flash_attention(*(x.transpose(1, 2) for x in leaves), **kw)
+        return torch.autograd.grad(out, leaves, do)
+
+    hymba = ssm_scan_inputs(dev, gen, 25, 128)
+    hymba.update(do=rnd(25, 128, 64), ds_t=None)
+    rwkv = scan_bwd_inputs(dev, gen, 64, 128, 64, 64, u_rows=64, s0=True)
+    scan_in = [hymba[x].clone().requires_grad_()
+               for x in ("r", "k", "v", "w", "s0")]
+
+    def scan_fwd_bwd():
+        out, _ = ls.linear_scan(*scan_in[:4], None, scan_in[4])
+        return torch.autograd.grad(out, scan_in, hymba["do"])
+
+    return dict(
+        flash_attention_bwd=call_row(
+            lambda: fa.flash_attention_bwd_op(qc, kc, vc, o, doc, **kw),
+            "_bwd"),
+        linear_scan_bwd=dict(
+            hymba=call_row(lambda: scan_bwd_call(ls.linear_scan_bwd_op,
+                                                 hymba), "linear_scan_bwd"),
+            rwkv6=call_row(lambda: scan_bwd_call(ls.linear_scan_bwd_op,
+                                                 rwkv), "linear_scan_bwd")),
+        attention_fwd_bwd=call_row(attn_fwd_bwd, "flash"),
+        scan_fwd_bwd=call_row(scan_fwd_bwd, "linear_scan"))
+
+
+def turn_rows(dev, names=None) -> dict:
     """The rows ``--scan-turns`` times in each tree, on the same data in
     every run: linear_scan's three, segment_aggregate through
     ``aggregate._scatter_reduce`` at Q1's Zipf shape, window_join
     through ``join.band_join_counts`` at ``JOIN_TIMED``'s shapes, Q1's
-    eager tick (``q1_tick_row``) and the general O+ tick's
-    (``general_tick_row``); the same API in both trees, so each is timed
-    where the main path pays it."""
+    eager tick (``q1_tick_row``), the general O+ tick's
+    (``general_tick_row``) and the backward kernels' (``backward_rows``);
+    the same API in both trees, so each is timed where the main path pays
+    it.  ``names`` (None: all) picks some of them."""
     from repro_torch.core import join
-    rows = dict(linear_scan=scan_timed_rows(dev),
-                segment_aggregate=call_row(q1_zipf_call(dev),
-                                           "segment_aggregate"),
-                q1_tick=q1_tick_row(dev), general_tick=general_tick_row(dev))
-    rows["window_join"] = {}
-    for name, shape in JOIN_TIMED.items():
-        st, b, ws = fill_join_state(*shape, dev)
-        rows["window_join"][name] = call_row(
-            lambda: join.band_join_counts(st, b, ws, band=10.0, n_attrs=2),
-            "window_join")
-    return rows
+
+    def window_join():
+        out = {}
+        for name, shape in JOIN_TIMED.items():
+            st, b, ws = fill_join_state(*shape, dev)
+            out[name] = call_row(
+                lambda: join.band_join_counts(st, b, ws, band=10.0,
+                                              n_attrs=2), "window_join")
+        return out
+
+    makers = dict(linear_scan=lambda: scan_timed_rows(dev),
+                  segment_aggregate=lambda: call_row(
+                      q1_zipf_call(dev), "segment_aggregate"),
+                  q1_tick=lambda: q1_tick_row(dev),
+                  general_tick=lambda: general_tick_row(dev),
+                  window_join=window_join,
+                  backward=lambda: backward_rows(dev))
+    return {name: make() for name, make in makers.items()
+            if names is None or name in names}
 
 
-def scan_turns(parent: str) -> None:
+def scan_turns(parent: str, names=()) -> None:
     """``turn_rows`` of the checkout at ``parent`` and of this one, in
     turns (parent, this, this, parent), each turn a process of its own
     that builds and imports its checkout's ``repro_torch``; one JSON line
-    a turn.
+    a turn.  ``names`` (none: all) picks rows of ``turn_rows``.
 
-        python3 chip_smoke.py --scan-turns <root of the parent checkout>
+        python3 chip_smoke.py --scan-turns <root of the parent checkout> \
+            [backward linear_scan ...]
     """
     code = ("import json, sys; sys.path[:0] = [sys.argv[1], sys.argv[2]]; "
             "import torch, chip_smoke; "
             "from repro_torch.kernels import build; build.library(); "
             "torch.backends.cuda.matmul.allow_tf32 = False; "
             "print(json.dumps(chip_smoke.turn_rows("
-            "torch.device('cuda', 0))))")
+            "torch.device('cuda', 0), sys.argv[3:] or None)))")
     trees = {"parent": pathlib.Path(parent).resolve(), "change": ROOT}
     for turn, name in enumerate(("parent", "change", "change", "parent")):
         out = subprocess.run(
-            [sys.executable, "-c", code, str(trees[name] / "src"), str(ROOT)],
-            capture_output=True, text=True, check=True)
+            [sys.executable, "-c", code, str(trees[name] / "src"), str(ROOT),
+             *names], capture_output=True, text=True, check=True)
         emit(dict(phase="scan_turns", turn=turn, tree=name,
                   rows=json.loads(out.stdout.strip().splitlines()[-1])))
 
@@ -1463,7 +1531,9 @@ def bitwise_repeat(name, call):
             raise AssertionError(f"{name}: two calls differ")
 
 
-# attention backward's cases: (B, Hq, Hkv, Sq, Skv, D, causal, window)
+# attention backward's cases: (B, Hq, Hkv, Sq, Skv, D, causal, window);
+# bfloat16 at D 64 and 128 takes the wgmma body (64-row tiles), the rest
+# the SIMT body
 ATTN_BWD_CASES = {
     "hymba": (1, 25, 5, 128, 128, 64, True, None),
     "qwen3_14b": (1, 40, 8, 128, 128, 128, True, None),
@@ -1472,7 +1542,18 @@ ATTN_BWD_CASES = {
     "d16_ragged": (2, 4, 2, 37, 37, 16, True, 5),
     "d32_no_key_rows": (1, 2, 1, 40, 24, 32, True, None),
     "d160_non_causal": (1, 4, 1, 20, 33, 160, False, None),
+    "d64_s63": (1, 10, 2, 63, 63, 64, True, None),
+    "d64_s65": (1, 10, 2, 65, 65, 64, True, None),
+    "d64_s129": (1, 10, 2, 129, 129, 64, True, None),
+    "d128_n_rep8": (1, 32, 4, 128, 128, 128, True, None),
+    "d64_window64": (1, 10, 2, 200, 200, 64, True, 64),
+    "d128_window64_no_key_rows": (1, 10, 2, 150, 100, 128, True, 64),
+    "d64_non_causal": (1, 10, 2, 70, 130, 64, False, None),
+    "hymba_batch2": (2, 25, 5, 128, 128, 64, True, None),
 }
+# cases whose q, k, v and dO are the model's transposed [B, S, H, D] views,
+# run through the autograd Function (the forward's log-sum-exp, no copy)
+ATTN_BWD_STRIDED = ("hymba", "d64_s65", "d128_n_rep8")
 
 
 def check_flash_attention_bwd(dev):
@@ -1480,17 +1561,24 @@ def check_flash_attention_bwd(dev):
     hymba-1.5b's training shape (q [1, 25, 128, 64], n_rep 5, causal),
     qwen3-14b's (D 128, n_rep 5), deepseek-moe-16b's (D 128, n_rep 1),
     gemma3's (D 256, n_rep 2, window 1024 over 1,100 tokens), and D 16,
-    32 and 160 with a window, rows that see no key and no causal mask,
-    each in float32 and bfloat16.  Limits: float32 within 1e-4 of each
-    gradient's largest magnitude (its sums over keys and heads run in
-    another order than the plain version's); bfloat16 elementwise within
-    |want| / 64 + 2^-7 of the largest (both round the outputs to bfloat16
-    and p to bfloat16 for dV, where a p near a rounding boundary may land
-    on the other side).  Each float32 case also against autograd of the
-    plain forward, and every case twice, bit for bit.  Timed at hymba's
-    bfloat16 shape against SDPA's backward with the KV heads repeated."""
+    32 and 160 with a window, rows that see no key and no causal mask;
+    the wgmma body's 64-row tile edges (63, 65 and 129 tokens at D 64,
+    n_rep 5), n_rep 8 at D 128, windows of 64 across tiles (at D 128 with
+    rows that see no key), non-causal, batch 2; each in float32 and
+    bfloat16.  Limits: float32 within 1e-4 of each gradient's largest
+    magnitude (its sums over keys and heads run in another order than the
+    plain version's); bfloat16 elementwise within |want| / 64 + 2^-7 of
+    the largest (both round the outputs to bfloat16; the kernel rounds
+    P and dS to bfloat16 as wgmma operands, the plain version p before
+    dividing by l).  The bfloat16 cases run with the forward's
+    log-sum-exp (``return_lse``) and without it (the backward takes its
+    own); each float32 case also against autograd of the plain forward,
+    and every case twice, bit for bit.  ``ATTN_BWD_STRIDED`` cases also
+    through ``ops.flash_attention``'s autograd Function on the model's
+    transposed views.  Timed at hymba's bfloat16 shape against SDPA's
+    backward with the KV heads repeated."""
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention_bwd_op, flash_attention_op)
+        flash_attention, flash_attention_bwd_op, flash_attention_op)
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_ref)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -1506,19 +1594,35 @@ def check_flash_attention_bwd(dev):
         for dt in (f32, bf16):
             tag = f"{name}_{'f32' if dt is f32 else 'bf16'}"
             q, k, v, do = (x.to(dt) for x in base)
-            o = flash_attention_op(q, k, v, **kw)
+            o, lse = flash_attention_op(q, k, v, return_lse=True, **kw)
+            want = flash_attention_bwd_ref(q, k, v, o, do, **kw)
             call = lambda: flash_attention_bwd_op(q, k, v, o, do, **kw)
             got = call()
-            bwd_close(tag, got, flash_attention_bwd_ref(q, k, v, o, do, **kw),
-                      errs, used, 1e-4, bf16=dt is bf16)
+            bwd_close(tag, got, want, errs, used, 1e-4, bf16=dt is bf16)
             bitwise_repeat(tag, call)
+            if lse is not None:
+                call = lambda: flash_attention_bwd_op(q, k, v, o, do,
+                                                      lse=lse, **kw)
+                bwd_close(f"{tag}_lse", call(), want, errs, used, 1e-4,
+                          bf16=True)
+                bitwise_repeat(f"{tag}_lse", call)
             if dt is f32:
                 leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-                want = torch.autograd.grad(
+                grads = torch.autograd.grad(
                     (flash_attention_ref(*leaves, **kw) * do).sum(), leaves)
-                bwd_close(f"{tag}_autograd", got, want, errs, used, 1e-4)
+                bwd_close(f"{tag}_autograd", got, grads, errs, used, 1e-4)
+            if name in ATTN_BWD_STRIDED:
+                views = [x.transpose(1, 2).contiguous().requires_grad_()
+                         for x in (q, k, v)]
+                out = flash_attention(*(x.transpose(1, 2) for x in views),
+                                      **kw)
+                dov = do.transpose(1, 2).contiguous().transpose(1, 2)
+                grads = torch.autograd.grad(out, views, dov)
+                bwd_close(f"{tag}_strided",
+                          [g.transpose(1, 2) for g in grads], want, errs,
+                          used, 1e-4, bf16=dt is bf16)
             if name == "hymba" and dt is bf16:
-                timed = attn_bwd_timed(q, k, v, o, do, kw)
+                timed = attn_bwd_timed(q, k, v, o, do, kw, lse)
             del q, k, v, do, o, got
     return dict(name="flash_attention_bwd", cases=len(errs),
                 max_abs_err=max(v for k, v in errs.items() if "f32" in k),
@@ -1528,11 +1632,16 @@ def check_flash_attention_bwd(dev):
                 limit_used_by_case=used, bitwise_repeat=True, **timed)
 
 
-def attn_bwd_timed(q, k, v, o, do, kw):
-    """The backward's row at one shape: kernel, plain version, SDPA's
-    backward (KV heads repeated, leaves of their own, so the timed
-    graph is SDPA's backward alone) and the card's bound."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd_op
+def attn_bwd_timed(q, k, v, o, do, kw, lse):
+    """The backward's row at one shape: kernel (with the forward's
+    log-sum-exp ``lse``, as the train step calls it), plain version,
+    SDPA's backward (KV heads repeated, leaves of their own, so the timed
+    graph is SDPA's backward alone) and the card's bound; beside them the
+    two ways to each row's statistics: ``no_lse`` (the backward takes
+    them itself, a first launch) and ``forward`` (the forward's device
+    time without and with writing ``lse``)."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd_op, flash_attention_op)
     from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -1551,13 +1660,25 @@ def attn_bwd_timed(q, k, v, o, do, kw):
     ms, by = bound(el * (3 * b * hq * sq * d + 2 * b * hkv * skv * d)
                    + el * (b * hq * sq * d + 2 * b * hkv * skv * d),
                    bf16_ops=10 * d * pairs)
+    no_lse = lambda: flash_attention_bwd_op(q, k, v, o, do, **kw)
     return dict(shape=f"q [{b}, {hq}, {sq}, {d}] {str(q.dtype)[6:]}, "
                       f"n_rep {rep}, causal",
-                **timings(lambda: flash_attention_bwd_op(q, k, v, o, do, **kw),
+                **timings(lambda: flash_attention_bwd_op(q, k, v, o, do,
+                                                         lse=lse, **kw),
                           lambda: flash_attention_bwd_ref(q, k, v, o, do,
                                                           **kw),
                           library),
-                bound_ms=ms, bound_by=by)
+                bound_ms=ms, bound_by=by,
+                no_lse=dict(ms=median_ms(no_lse), device_ms=device_ms(no_lse),
+                            kernels_per_call=kernels_per_call(no_lse)),
+                forward=dict(
+                    device_ms=device_ms(
+                        lambda: flash_attention_op(q, k, v, **kw),
+                        kernel="flash"),
+                    with_lse_device_ms=device_ms(
+                        lambda: flash_attention_op(q, k, v, return_lse=True,
+                                                   **kw),
+                        kernel="flash")))
 
 
 def scan_bwd_inputs(dev, gen, bh, t, dk, dv, u_rows=None, s0=False, w=None,
@@ -1585,7 +1706,10 @@ def check_linear_scan_bwd(dev):
     T 1024, RWKV6's strong decays exp(-exp(x)) up to x = 8 and decays
     mixed from {0, 1e-30, 1e-6, 0.5, 1} (nothing NaN), every key size
     (8 to 128), u one row a bh and one a head over two lanes, ragged Dv
-    and T, T 1.  hymba's and rwkv6's also against autograd of the plain
+    and T, T 1; hymba's SSM at T 129 and 1000, Dv 128 (at Dk 16 and 64),
+    Dv 30 (rows the kernel copies 4 bytes at a time) and a last chunk cut
+    short at Dk 64 (T 127 against chunks of ``ops.bwd_chunk(64, 64)`` =
+    18 steps).  hymba's and rwkv6's also against autograd of the plain
     forward, and every case twice, bit for bit.  Timed at hymba's
     shape."""
     from repro_torch.kernels.linear_scan.ops import linear_scan_bwd_op
@@ -1597,9 +1721,13 @@ def check_linear_scan_bwd(dev):
         -6 + 14 * torch.rand(s, generator=gen, device=dev)))
     mixed = lambda *s: torch.tensor([0, 1e-30, 1e-6, 0.5, 1], device=dev)[
         torch.randint(0, 5, s, generator=gen, device=dev)]
-    hymba = ssm_scan_inputs(dev, gen, 25, 128)
-    hymba.update(s0=torch.zeros_like(hymba["s0"]), ds_t=None,
-                 do=torch.randn((25, 128, 64), generator=gen, device=dev))
+    def ssm(t):
+        a = ssm_scan_inputs(dev, gen, 25, t)
+        a.update(s0=torch.zeros_like(a["s0"]), ds_t=None,
+                 do=torch.randn((25, t, 64), generator=gen, device=dev))
+        return a
+
+    hymba = ssm(128)
     cases = {
         "hymba": hymba,
         "rwkv6": inputs(64, 128, 64, 64, u_rows=64, s0=True),
@@ -1613,6 +1741,14 @@ def check_linear_scan_bwd(dev):
         "dk128_dv40": inputs(4, 130, 128, 40, u_rows=2, s0=True),
         "t1_no_ds_t": inputs(512, 1, 64, 64, u_rows=64, s0=True,
                              ds_t=False),
+        "hymba_t129": ssm(129),
+        "hymba_t1000": ssm(1000),
+        "dk16_dv128": inputs(8, 70, 16, 128, u_rows=4, s0=True),
+        "dk64_dv128": inputs(8, 33, 64, 128, u_rows=8, s0=True),
+        "dk64_t127_ragged_chunk": inputs(16, 127, 64, 64, u_rows=16,
+                                         s0=True),
+        # Dv not a multiple of 4: the kernel's 4-byte copies
+        "dk16_dv30": inputs(4, 45, 16, 30, u_rows=2, s0=True),
     }
     errs, used = {}, {}
     for name, a in cases.items():
@@ -4121,7 +4257,7 @@ def main(argv) -> int:
         return 1
     if argv[:1] == ["--scan-turns"]:
         print(card_line(), flush=True)
-        scan_turns(argv[1])
+        scan_turns(argv[1], argv[2:])
         return 0
     if argv[:1] == ["--drill-times"]:
         print(card_line(), flush=True)

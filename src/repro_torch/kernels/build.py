@@ -61,15 +61,13 @@ PROTOTYPES = {
     # r, k, v, w, u, u_rows, s0, o, s_out, bh, t_len, dk, dv, chunk, stream
     "repro_linear_scan": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
                           _I, _I, _P),
-    # q, k, v, o, do, dq, dk, dv, scratch, batch, hq, hkv, len_q, len_kv,
-    # d, causal, window, dtype, scale, stream
-    "repro_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                  _I, _I, _I, _I, _I, _I, _I, _I,
-                                  ctypes.c_float, _P),
-    # r, k, v, w, u, u_rows, s0, do, ds_t, scratch, dr, dk, dv, dw, du,
-    # ds0, bh, t_len, dk, dv, stream
-    "repro_linear_scan_bwd": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                              _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # one packed argument block (flash_attention/ops.py BWD_ARGS)
+    "repro_flash_attention_bwd": (ctypes.c_char_p,),
+    # r, k, v, w, u, u_rows, s0, do, ds_t, scratch, scratch floats, dr, dk,
+    # dv, dw, du, ds0, bh, t_len, dk, dv, stream
+    "repro_linear_scan_bwd": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                              ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _I,
+                              _I, _I, _I, _P),
 }
 
 

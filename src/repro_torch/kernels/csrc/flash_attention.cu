@@ -59,7 +59,9 @@
 //    S = Q K^T with Q and K in shared memory (K-major), P from the S
 //    accumulator to registers as bf16 (the A operand, no shared round
 //    trip), O += P V with V read MN-major through its descriptor (no
-//    transpose).  Tiles of 64 keys (32 at D 256, for registers) arrive by
+//    transpose).  With lse given (the training forward; null on every
+//    serving call) each row's log-sum-exp, m + log l, goes there for the
+//    backward.  Tiles of 64 keys (32 at D 256, for registers) arrive by
 //    16-byte cp.async into a two-stage ring of swizzled tiles (128-, 64-
 //    or 32-byte swizzle, the widest that divides D: 160 takes 64).  TMA
 //    would need a tensor map per tensor and call, encoded on the host,
@@ -75,7 +77,7 @@
 // body; registers for D = 16, 32, 64, 128, 160, 256, static shared
 // memory, and the dynamic shared memory the launcher asks for:
 //   decode   95, 90, 96, 96, 95, 96; 272 B; 384 D + 3136 B (52,288 at 128)
-//   prefill  128, 134, 140, 185, 201, 214; 272 B; 1024 + 640 D B at
+//   prefill  109, 117, 132, 168, 188, 216; 272 B; 1024 + 640 D B at
 //            D <= 160 (82,944 at 128), 99,328 B at 256
 //   f32      56 to 165; 80 B; 320 D + 2304 B
 
@@ -113,6 +115,8 @@ struct Params {
   const int32_t* q_offset;      // q_offset[b * qo_b + h * qo_h], or null
   long long qo_b, qo_h;
   const int32_t* kv_index;      // [B] or null
+  float* lse;                   // prefill body: each row's log-sum-exp of
+                                // its logits, [B, Hq, Sq] f32, or null
   int hkv, n_rep, len_q, len_kv;
   int causal, window;           // window <= 0: none
   float scale;
@@ -184,20 +188,9 @@ __device__ void visible_span(const Params& p, int b, int m0, int count,
   __syncthreads();
 }
 
-// 16 bytes global -> shared, asynchronously; zeros where !pred.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(pred ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
+using wgmma::cp_async16;
+using wgmma::cp_async_commit;
+using wgmma::cp_async_wait;
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -333,7 +326,7 @@ flash_decode_kernel(const Params p) {
                   vs + (stage ^ 1) * kDecBK * D);
     }
     cp_async_commit();
-    cp_async_wait1();
+    cp_async_wait<1>();
     __syncthreads();
     const bf16* kt = ks + stage * kDecBK * C::KP;
     const bf16* vt = vs + stage * kDecBK * D;
@@ -472,16 +465,7 @@ struct Pre {
   static constexpr int SMEM = 1024 + Q_BYTES + 4 * KV_BYTES;
 };
 
-// Byte offset of element (row, col) of a tile of `rows` rows whose columns
-// are cut into atoms of E; each atom holds rows x SW bytes, swizzled as
-// TMA's and wgmma's SW-byte modes lay them out (16-byte unit u of row r at
-// u ^ ((r * SW) >> 7) within each 1024 bytes).
-template <int SW>
-__device__ __forceinline__ uint32_t sw_off(int row, int col, int rows) {
-  constexpr int E = SW / 2;
-  const uint32_t in = row * SW + (col % E) * 2;
-  return (col / E) * rows * SW + (in ^ (((in >> 7) & (SW / 16 - 1)) << 4));
-}
+using wgmma::sw_off;
 
 template <int D>
 __device__ __forceinline__ void pre_load_kv(const bf16* kb, const bf16* vb,
@@ -552,8 +536,8 @@ flash_prefill_kernel(const Params p) {
                      nk + C::KV_BYTES);
     }
     cp_async_commit();
-    cp_async_wait1();
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    cp_async_wait<1>();
+    wgmma::fence_async_shared();
     __syncthreads();
     const unsigned char* kt = kvs + stage * 2 * C::KV_BYTES;
     const unsigned char* vt = kt + C::KV_BYTES;
@@ -651,6 +635,12 @@ flash_prefill_kernel(const Params p) {
     if (m < n_rows) {
       bf16* orow = out_row(p, b, m);
       const float inv = 1.f / fmaxf(l_run[ri], 1e-30f);
+      if (p.lse != nullptr && lane % 4 == 0) {   // the backward's P
+        const int h = m / p.len_q;
+        p.lse[(static_cast<long long>(b) * p.hkv * p.n_rep + kvh * p.n_rep +
+               h) * p.len_q + m - h * p.len_q] =
+            m_run[ri] + logf(fmaxf(l_run[ri], 1e-30f));
+      }
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         reinterpret_cast<bf162*>(orow + 8 * j + 2 * (lane % 4))[0] =
@@ -925,24 +915,26 @@ int launch_d(const Params& p, int batch, int dtype, cudaStream_t stream) {
 
 }  // namespace
 
-// One launch's arguments, packed by the wrapper into 216 bytes
-// (ops.py ARGS, "<20q10if4xq"): a Python call with one bytes argument
+// One launch's arguments, packed by the wrapper into 224 bytes
+// (ops.py ARGS, "<21q10if4xq"): a Python call with one bytes argument
 // costs the host far less than one with 33 converted ones.  Strides are
 // element strides (b, h, s) of the [B, H, S, D] views of q, k, v and o.
 // Row (b, h) reads q_offset[b * qo_b + h * qo_h].  dtype: 0 float32, 1
 // bfloat16 (q, k, v and o share it); bfloat16 needs 16-byte aligned rows.
 // For bfloat16 with n_rep * Sq <= 16 (the decode body), each (batch row,
 // KV head)'s visible 32-key tiles are shared out over a cluster of
-// n_split (1 to 8) blocks.
+// n_split (1 to 8) blocks.  lse (null on every serving call): the
+// prefill body writes each row's log-sum-exp there for the backward; the
+// other bodies leave it.
 struct LaunchArgs {
   long long q, k, v, o;
   long long strides[12];
-  long long q_offset, qo_b, qo_h, kv_index;
+  long long q_offset, qo_b, qo_h, kv_index, lse;
   int n_split, batch, hq, hkv, len_q, len_kv, d, causal, window, dtype;
   float scale;
   long long stream;
 };
-static_assert(sizeof(LaunchArgs) == 216, "LaunchArgs must match ops.ARGS");
+static_assert(sizeof(LaunchArgs) == 224, "LaunchArgs must match ops.ARGS");
 
 extern "C" int repro_flash_attention(const char* packed) {
   LaunchArgs a;
@@ -967,6 +959,7 @@ extern "C" int repro_flash_attention(const char* packed) {
   p.qo_b = a.qo_b;
   p.qo_h = a.qo_h;
   p.kv_index = reinterpret_cast<const int32_t*>(a.kv_index);
+  p.lse = reinterpret_cast<float*>(a.lse);
   p.hkv = hkv;
   p.n_rep = hq / hkv;
   p.len_q = len_q;

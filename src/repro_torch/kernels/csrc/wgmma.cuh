@@ -1,11 +1,15 @@
-// Hopper warpgroup matrix multiply (wgmma, sm_90a) for flash_attention.cu:
-// one asm block per N, bf16 inputs, f32 accumulators, M 64, K 16.
+// Hopper warpgroup matrix multiply (wgmma, sm_90a) for flash_attention.cu
+// and flash_attention_bwd.cu: one asm block per N, bf16 inputs, f32
+// accumulators, M 64, K 16; and the tiles they read (sw_off) with the
+// cp.async copies that fill them.
 //
 // wgmma_ss<N>: D[64, N] (+)= A[64, 16] B[16, N], A and B in shared memory,
 //   both K-major (imm-trans-a = imm-trans-b = 0): S = Q K^T.
 // wgmma_rs<N>: the same with A in registers (4 x bf16x2 per thread, the
 //   accumulator's own fragment order) and B MN-major (imm-trans-b = 1):
 //   O += P V with V read as it lies, keys by rows.
+//   The backward's dQ += dS K, dV += P^T dO and dK += dS^T Q read K, dO
+//   and Q the same way.
 // scale_d = 0 ignores D's old value (the first K step of S).  Accumulator
 // element i of a thread holds row 16 warp + lane / 4 + 8 ((i / 2) % 2),
 // column 8 (i / 4) + 2 (lane % 4) + i % 2.
@@ -29,6 +33,38 @@ __device__ __forceinline__ void wait_all() {
 // a read of it above the wait.
 __device__ __forceinline__ void hold(float& x) {
   asm volatile("" : "+f"(x)::"memory");
+}
+
+// Byte offset of element (row, col) of a bf16 tile of `rows` rows whose
+// columns are cut into atoms of E = SW / 2; each atom holds rows x SW
+// bytes, swizzled as TMA's and wgmma's SW-byte modes lay them out
+// (16-byte unit u of row r at u ^ ((r * SW) >> 7) within each 1024 bytes).
+template <int SW>
+__device__ __forceinline__ uint32_t sw_off(int row, int col, int rows) {
+  constexpr int E = SW / 2;
+  const uint32_t in = row * SW + (col % E) * 2;
+  return (col / E) * rows * SW + (in ^ (((in >> 7) & (SW / 16 - 1)) << 4));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros where !pred.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's cp.async groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// What cp.async wrote, made visible to wgmma's reads (the async proxy).
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Shared-memory matrix descriptor: start address, leading and stride byte

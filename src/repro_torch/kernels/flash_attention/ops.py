@@ -28,14 +28,18 @@ to bfloat16's precision (chip_smoke.py states the bound it checks).
 
 The backward is a kernel of its own, ``flash_attention_bwd``
 (``csrc/flash_attention_bwd.cu``; plain version
-``ref.flash_attention_bwd_ref``), dispatched the same way.
+``ref.flash_attention_bwd_ref``), dispatched the same way: a wgmma body
+for bfloat16 at D 64 and 128 (n_rep <= 8), the SIMT body elsewhere.
 ``flash_attention`` is the differentiable entry the models call: with no
 input needing a gradient it is ``flash_attention_op`` itself, so the
 serving path and its CUDA graphs launch exactly what they did; otherwise a
 ``torch.autograd.Function`` runs the forward through
-``flash_attention_op`` and its backward through ``flash_attention_bwd_op``.
-A gradient through a cached call (``q_offset`` or ``kv_index``) raises:
-training attends without a cache, as the reference's does.
+``flash_attention_op`` (asking it for each row's log-sum-exp, which the
+prefill body writes and the wgmma backward reads instead of taking it
+again) and its backward through ``flash_attention_bwd_op`` on the saved
+views as they lie.  A gradient through a cached call (``q_offset`` or
+``kv_index``) raises: training attends without a cache, as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -53,15 +57,22 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 DECODE_ROWS = 16        # n_rep * Sq at most: the split-KV decode body
 MAX_SPLIT = 8           # decode blocks per (batch row, KV head): a cluster
 # the C entry's LaunchArgs: q, k, v, o, 12 strides, q_offset, qo_b, qo_h,
-# kv_index (int64); n_split, batch, hq, hkv, len_q, len_kv, d, causal,
+# kv_index, lse (int64); n_split, batch, hq, hkv, len_q, len_kv, d, causal,
 # window, dtype (int32); scale (float); stream (int64)
-ARGS = struct.Struct("<20q10if4xq")
+ARGS = struct.Struct("<21q10if4xq")
+# the backward's BwdArgs: q, k, v, o, do, dq, dk, dv, lse, scratch, the
+# scratch's floats, 24 strides (int64); batch, hq, hkv, len_q, len_kv, d,
+# causal, window, dtype (int32); scale (float); stream (int64)
+BWD_ARGS = struct.Struct("<35q9ifq")
+WGMMA_BWD_DIMS = (64, 128)  # the backward's wgmma body: bfloat16, these D,
+MAX_CLUSTER = 8             # and n_rep up to the portable cluster size
 
 _SMS = {}               # device -> streaming multiprocessors
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
-                          n_rep: int = 1, q_offset=None, kv_index=None):
+                          n_rep: int = 1, q_offset=None, kv_index=None,
+                          return_lse: bool = False):
     """The plain version with the wrapper's signature: ``q_offset`` per
     batch row is widened to the per-row form ``flash_attention_ref``
     takes."""
@@ -70,7 +81,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
         q_offset = q_offset.repeat_interleave(hq)
     return flash_attention_ref(q, k, v, causal=causal, window=window,
                                n_rep=n_rep, q_offset=q_offset,
-                               kv_index=kv_index)
+                               kv_index=kv_index, return_lse=return_lse)
 
 
 def _index(name, t, n, dev):
@@ -130,7 +141,7 @@ def validate(q, k, v, *, causal: bool = True, window=None, n_rep: int = 1,
 
 
 def _cuda(q, k, v, *, causal: bool = True, window=None, n_rep: int = 1,
-          q_offset=None, kv_index=None):
+          q_offset=None, kv_index=None, return_lse: bool = False):
     q4, _, _, strides, ptrs = validate(
         q, k, v, causal=causal, window=window, n_rep=n_rep,
         q_offset=q_offset, kv_index=kv_index)
@@ -149,10 +160,16 @@ def _cuda(q, k, v, *, causal: bool = True, window=None, n_rep: int = 1,
     qo_b = qo_h = 0
     if q_offset is not None:
         qo_b, qo_h = (hq, 1) if q_offset.numel() == b * hq else (1, 0)
+    # each row's log-sum-exp: the prefill body's (bfloat16, more than 16
+    # rows a KV head) writes it; the others give None
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
+           if return_lse and q.dtype == torch.bfloat16
+           and n_rep * sq > DECODE_ROWS else None)
     args = ARGS.pack(
         *ptrs, out.data_ptr(), *strides, *out.stride()[:3],
         0 if q_offset is None else q_offset.data_ptr(), qo_b, qo_h,
-        0 if kv_index is None else kv_index.data_ptr(), n_split, b, hq,
+        0 if kv_index is None else kv_index.data_ptr(),
+        0 if lse is None else lse.data_ptr(), n_split, b, hq,
         hkv, sq, skv, d, int(causal),
         0 if window is None else int(window), DTYPES[q.dtype], d ** -0.5,
         torch._C._cuda_getCurrentRawStream(dev.index))
@@ -163,7 +180,10 @@ def _cuda(q, k, v, *, causal: bool = True, window=None, n_rep: int = 1,
         with torch.cuda.device(dev):
             rc = fn(args)
     build.raise_on_error("flash_attention", rc)
-    return out[0] if q.dim() == 3 else out
+    out = out[0] if q.dim() == 3 else out
+    if not return_lse:
+        return out
+    return out, (lse[0] if lse is not None and q.dim() == 3 else lse)
 
 
 flash_attention_op = dispatch.register(dispatch.Kernel(
@@ -175,8 +195,29 @@ flash_attention_op = dispatch.register(dispatch.Kernel(
 ))
 
 
+def flash_attention_bwd_plain(q, k, v, o, do, *, causal: bool = True,
+                              window=None, n_rep: int = 1, lse=None):
+    """The plain backward with the wrapper's signature, on contiguous
+    copies: it takes each row's statistics itself, so ``lse`` is not
+    read."""
+    q, k, v, o, do = (x.contiguous() for x in (q, k, v, o, do))
+    return flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                   window=window, n_rep=n_rep)
+
+
+def _readable(x):
+    """``x`` if the kernel reads its rows where they lie (a unit last
+    stride; bfloat16 rows on 16-byte boundaries), else a contiguous copy
+    (an expanded dO, say)."""
+    st = x.stride()
+    if st[-1] == 1 and (x.dtype != torch.bfloat16 or not (
+            x.data_ptr() & 15 or (st[0] | st[1] | st[2]) & 7)):
+        return x
+    return x.contiguous()
+
+
 def _bwd_cuda(q, k, v, o, do, *, causal: bool = True, window=None,
-              n_rep: int = 1):
+              n_rep: int = 1, lse=None):
     flat = q.dim() == 3
     q4, k4, v4, o4, do4 = (x[None] if flat else x for x in (q, k, v, o, do))
     b, hq, sq, d = q4.shape
@@ -189,20 +230,44 @@ def _bwd_cuda(q, k, v, o, do, *, causal: bool = True, window=None,
                            ("do", do4, (b, hq, sq, d)),
                            ("k", k4, (b, hkv, skv, d)),
                            ("v", v4, (b, hkv, skv, d))):
-        dispatch.check(name, x, dtype, shape, dev)
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"flash_attention_bwd: {name} is {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}, expected "
+                             f"{dtype} {shape} on {dev}")
     if window is not None and window < 1:
         raise ValueError("window must be None or >= 1")
+    q4, k4, v4, o4, do4 = (_readable(x) for x in (q4, k4, v4, o4, do4))
     dq, dk, dv = (torch.empty_like(x) for x in (q4, k4, v4))
-    # each query row's max, sum and D_i; each query head's share of dK, dV
-    scratch = torch.empty(3 * b * hq * sq + 2 * b * hq * skv * d,
-                          dtype=torch.float32, device=dev)
+    wgmma = (dtype == torch.bfloat16 and d in WGMMA_BWD_DIMS
+             and n_rep <= MAX_CLUSTER)
+    if lse is not None:
+        lse = lse[None] if flat else lse
+        if not wgmma:
+            lse = None                       # the SIMT body takes its own
+        else:
+            dispatch.check("lse", lse, torch.float32, (b, hq, sq), dev)
+    # scratch: wgmma, each row's log-sum-exp unless given; SIMT, each
+    # row's max, sum and D_i and each query head's share of dK and dV
+    n = ((0 if lse is not None else b * hq * sq) if wgmma
+         else 3 * b * hq * sq + 2 * b * hq * skv * d)
+    scratch = torch.empty(n, dtype=torch.float32, device=dev)
     if sq:
-        build.launch("flash_attention_bwd", dev, q4.data_ptr(),
-                     k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
-                     do4.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                     dv.data_ptr(), scratch.data_ptr(), b, hq, hkv, sq, skv,
-                     d, int(causal), 0 if window is None else int(window),
-                     DTYPES[dtype], d ** -0.5)
+        strides = [s for x in (q4, k4, v4, o4, do4, dq, dk, dv)
+                   for s in x.stride()[:3]]
+        args = BWD_ARGS.pack(
+            q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
+            do4.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            0 if lse is None else lse.data_ptr(), scratch.data_ptr(), n,
+            *strides, b, hq, hkv, sq, skv, d, int(causal),
+            0 if window is None else int(window), DTYPES[dtype], d ** -0.5,
+            torch._C._cuda_getCurrentRawStream(dev.index))
+        fn = build.function("repro_flash_attention_bwd")
+        if dev.index == torch.cuda.current_device():
+            rc = fn(args)
+        else:
+            with torch.cuda.device(dev):
+                rc = fn(args)
+        build.raise_on_error("flash_attention_bwd", rc)
     else:
         dk.zero_()
         dv.zero_()
@@ -211,7 +276,7 @@ def _bwd_cuda(q, k, v, o, do, *, causal: bool = True, window=None,
 
 flash_attention_bwd_op = dispatch.register(dispatch.Kernel(
     name="flash_attention_bwd",
-    plain=flash_attention_bwd_ref,
+    plain=flash_attention_bwd_plain,
     cuda=_bwd_cuda,
     replaces="jax.grad of src/repro/kernels/flash_attention/ref.py:6 "
              "attention_ref",
@@ -222,21 +287,22 @@ flash_attention_bwd_op = dispatch.register(dispatch.Kernel(
 class _FlashAttention(torch.autograd.Function):
     """``flash_attention_op`` (no cache) with ``flash_attention_bwd_op``
     as its gradient.  q, k and v may be strided views (the model's
-    transposed activations); the backward reads contiguous copies and
-    returns contiguous gradients of the same shapes."""
+    transposed activations); the backward reads them, o and dO where they
+    lie, with each row's log-sum-exp from the forward where its body
+    gave one, and returns gradients laid out as the inputs."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, n_rep):
-        o = flash_attention_op(q, k, v, causal=causal, window=window,
-                               n_rep=n_rep)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = flash_attention_op(q, k, v, causal=causal, window=window,
+                                    n_rep=n_rep, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = dict(causal=causal, window=window, n_rep=n_rep)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = (x.contiguous() for x in ctx.saved_tensors)
-        dq, dk, dv = flash_attention_bwd_op(q, k, v, o, do.contiguous(),
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_op(q, k, v, o, do, lse=lse,
                                             **ctx.args)
         return dq, dk, dv, None, None, None
 

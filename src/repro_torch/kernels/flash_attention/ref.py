@@ -26,7 +26,11 @@ NEG_INF = -1e30
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
-                        n_rep: int = 1, q_offset=None, kv_index=None):
+                        n_rep: int = 1, q_offset=None, kv_index=None,
+                        return_lse: bool = False):
+    """-> the output, or with ``return_lse`` ``(output, lse)``: each
+    row's log-sum-exp of its masked logits (float32, q's shape without
+    D), what the backward's P is taken from."""
     flat = q.dim() == 3
     if flat:
         q, k, v = q[None], k[None], v[None]
@@ -51,11 +55,15 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
     if window is not None and window > 0:
         mask &= q_pos - k_pos < window
     s = torch.where(mask, s, NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     acc = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v32)
     out = (acc / l.clamp_min(1e-30)).to(q.dtype)
-    return out[0] if flat else out
+    if not return_lse:
+        return out[0] if flat else out
+    lse = (m + torch.log(l.clamp_min(1e-30)))[..., 0]
+    return (out[0], lse[0]) if flat else (out, lse)
 
 
 def _mask(sq, skv, causal, window, device):

@@ -19,7 +19,9 @@ over Dk and the chunk's steps run in another order).
 The backward is a kernel of its own, ``linear_scan_bwd``
 (``csrc/linear_scan_bwd.cu``; plain version ``ref.linear_scan_bwd_ref``),
 with the same dispatch: the plain version for CPU tensors, the CUDA
-kernel for CUDA tensors.  ``linear_scan`` is the differentiable entry the
+kernel for CUDA tensors (a cluster of blocks a bh, each owning some
+rows of the state and all its Dv columns, so Dv up to 128).
+``linear_scan`` is the differentiable entry the
 models call: with no input needing a gradient it is ``linear_scan_op``
 itself, so the serving path and its CUDA graphs launch exactly what they
 did; otherwise a ``torch.autograd.Function`` runs the forward through
@@ -89,14 +91,26 @@ linear_scan_op = dispatch.register(dispatch.Kernel(
 ))
 
 
-def bwd_scratch_floats(bh: int, t: int, dk: int, dv: int) -> int:
+BWD_MAX_DV = 128        # the backward kernel: a block owns every column
+
+
+def bwd_chunk(dk: int, dv: int) -> int:
+    """Steps a chunk of the backward kernel's reverse walk
+    (``chunk_len`` in ``csrc/linear_scan_bwd.cu``): the most whose
+    buffers fit 110 KB of shared memory in each block of a bh's cluster
+    (``rb`` of the Dk rows a block), at most 32."""
+    rb = dk // min(8, dk // 4)
+    cols = -(-dv // 32) * 32
+    step = 2 * (3 * rb + 2 * (cols + 4)) + 2 * rb * (cols + 1) + 2 + 2 * cols
+    return min(32, (110 * 1024 // 4 - rb - rb * cols) // step)
+
+
+def bwd_scratch_floats(bh: int, t: int, dk: int, dv: int,
+                       with_u: bool = False) -> int:
     """The backward kernel's float32 scratch: the state at the start of
-    each chunk of 512 / Dk steps (``Shape::C`` in
-    ``csrc/linear_scan_bwd.cu``), the dk/dw/dr partials of each 32-column
-    tile, v_t . do_t."""
-    chunks = -(-t // (512 // dk))
-    tiles = -(-dv // 32)
-    return bh * chunks * dk * dv + 3 * tiles * bh * t * dk + bh * t
+    each chunk (``bwd_chunk``) and, with u, each bh's du."""
+    chunks = -(-t // bwd_chunk(dk, dv))
+    return bh * chunks * dk * dv + (bh * dk if with_u else 0)
 
 
 def _bwd_cuda(r, k, v, w, u=None, s0=None, do=None, ds_t=None):
@@ -104,6 +118,8 @@ def _bwd_cuda(r, k, v, w, u=None, s0=None, do=None, ds_t=None):
     bh, t, dk = r.shape
     dv = v.shape[-1]
     dev, f32 = r.device, torch.float32
+    if dv > BWD_MAX_DV:
+        raise ValueError(f"linear_scan_bwd: Dv {dv} past {BWD_MAX_DV}")
     if do is None:
         do = torch.zeros((bh, t, dv), dtype=f32, device=dev)
     dispatch.check("do", do, f32, (bh, t, dv), dev)
@@ -113,11 +129,11 @@ def _bwd_cuda(r, k, v, w, u=None, s0=None, do=None, ds_t=None):
     dvv = torch.empty_like(v)
     du = None if u is None else torch.empty_like(u)
     ds0 = torch.empty((bh, dk, dv), dtype=f32, device=dev)
-    scratch = torch.empty(bwd_scratch_floats(bh, t, dk, dv), dtype=f32,
-                          device=dev)
+    n = bwd_scratch_floats(bh, t, dk, dv, u is not None)
+    scratch = torch.empty(n, dtype=f32, device=dev)
     build.launch("linear_scan_bwd", dev, r.data_ptr(), k.data_ptr(),
                  v.data_ptr(), w.data_ptr(), _ptr(u), u_rows, _ptr(s0),
-                 do.data_ptr(), _ptr(ds_t), scratch.data_ptr(),
+                 do.data_ptr(), _ptr(ds_t), scratch.data_ptr(), n,
                  dr.data_ptr(), dkk.data_ptr(), dvv.data_ptr(),
                  dw.data_ptr(), _ptr(du), ds0.data_ptr(), bh, t, dk, dv)
     return dr, dkk, dvv, dw, du, ds0

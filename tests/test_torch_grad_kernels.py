@@ -7,9 +7,14 @@ and 64) and against autograd of the port's plain forward
 (``flash_attention_ref``); ``linear_scan_bwd_ref`` against ``jax.grad`` of
 the reference's ``linear_scan_ref`` (with and without u) and against
 autograd of the port's plain forward with ``s0`` and ``dS_T`` (u one row
-a bh or one a head).  All float32; limits 2e-5 for attention and 1e-4 for
-the scan relative to the gradient's largest magnitude (the forwards'
-own tolerances: the sums run in another order).  In bfloat16 the plain
+a bh or one a head), each also at the edges of the card kernels' tiles
+(65 tokens, a window of 64 over 130, T 65, Dv 128).  All float32;
+limits 2e-5 for attention and 1e-4 for the scan relative to the
+gradient's largest magnitude (the forwards' own tolerances: the sums run
+in another order).  The plain forward's log-sum-exp (``return_lse``,
+which the card's backward reads) equals ``torch.logsumexp`` of the
+masked logits, and asking for it leaves the output as it was.  The
+backward kernels' phase trace finds every anchor it stamps.  In bfloat16 the plain
 attention backward rounds p as the forward does and agrees with its
 float32 value within bfloat16's precision.
 
@@ -66,6 +71,9 @@ ATTN_CASES = [  # causal, window, sq, skv, n_rep, d
     (True, None, 24, 24, 1, 16), (True, None, 24, 24, 5, 64),
     (True, 8, 40, 40, 5, 16), (True, 16, 33, 33, 1, 64),
     (False, None, 12, 20, 2, 16), (True, None, 6, 30, 1, 16),
+    # the wgmma body's 64-row tile edges: one row past a tile, and a
+    # window of 64 whose rows span three tiles
+    (True, None, 65, 65, 5, 64), (True, 64, 130, 130, 5, 64),
 ]
 
 
@@ -118,6 +126,33 @@ def test_attention_bwd_ref_bfloat16():
         _close(g, w.numpy(), 2 ** -6)
 
 
+@pytest.mark.parametrize("causal,window,sq,skv,n_rep", [
+    (True, None, 65, 65, 5), (True, 64, 130, 130, 5),
+    (False, None, 12, 20, 2), (True, None, 9, 5, 1)])
+def test_attention_lse_is_logsumexp_of_masked_logits(causal, window, sq,
+                                                     skv, n_rep):
+    """``return_lse``: each row's log-sum-exp of its masked logits (what
+    the backward's P is taken from), and the output exactly what a call
+    without it returns."""
+    q, k, v, _ = (T(x).reshape(1, -1, *x.shape[1:])
+                  for x in _attn(2, n_rep, sq, skv, 64, sq + skv))
+    kw = dict(causal=causal, window=window, n_rep=n_rep)
+    out, lse = flash_ops.flash_attention_op(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out, flash_ops.flash_attention_op(q, k, v, **kw))
+    kk = k.repeat_interleave(n_rep, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, kk) * 64 ** -0.5
+    pos = torch.arange(sq)[:, None] + skv - sq
+    key = torch.arange(skv)
+    mask = torch.ones(sq, skv, dtype=torch.bool)
+    if causal:
+        mask &= pos >= key
+    if window:
+        mask &= pos - key < window
+    want = torch.logsumexp(torch.where(mask, s, -1e30), dim=-1)
+    assert lse.shape == (1, 2 * n_rep, sq) and lse.dtype == torch.float32
+    _close(lse, want.numpy(), 1e-6)
+
+
 def _scan(bh, t, dk, dv, seed, u_rows=None, s0=False):
     rng = np.random.default_rng(seed)
     r = rng.normal(0, 1, (bh, t, dk)).astype(np.float32)
@@ -133,7 +168,9 @@ def _scan(bh, t, dk, dv, seed, u_rows=None, s0=False):
 
 
 @pytest.mark.parametrize("bonus,dk,dv,t", [
-    (False, 16, 64, 20), (True, 16, 16, 17), (True, 8, 12, 9)])
+    (False, 16, 64, 20), (True, 16, 16, 17), (True, 8, 12, 9),
+    # hymba's SSM one step past a power of two; the widest Dv a block owns
+    (False, 16, 64, 65), (True, 16, 128, 11)])
 def test_scan_bwd_ref_matches_jax_grad(bonus, dk, dv, t):
     bh = 4
     r, k, v, w, u, _, do, _ = _scan(bh, t, dk, dv, t + dk,
@@ -267,3 +304,18 @@ def test_backward_kernels_are_registered():
         assert kern.replaces.startswith("jax.grad of src/repro/")
         assert kern.source.endswith(f"csrc/{name}.cu")
         assert reg[fwd].source != kern.source
+
+
+@pytest.mark.parametrize("kernel,source", [
+    ("flash", "flash_attention_bwd.cu"), ("scan", "linear_scan_bwd.cu")])
+def test_bwd_trace_stamps_every_phase(kernel, source):
+    """The backward kernels' phase trace (``kernels/bwd_trace.py``) finds
+    each of its anchors once in the sources, so a card run stamps every
+    phase it names."""
+    import re
+    from repro_torch.kernels import build, bwd_trace
+    text = bwd_trace.instrument((build.CSRC / source).read_text(), kernel)
+    stamps = {int(j) for j in re.findall(r"STAMP\((\d+)\);", text)}
+    named = {j for pair in bwd_trace.PHASES[kernel] for j in pair}
+    assert named <= stamps
+    assert text.count("int trace_n = 0;") == (2 if kernel == "flash" else 1)
