@@ -121,7 +121,7 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
                  --resume``, each a process of its own on the card, and
                  the same ``live`` run on the CPU with an equal output
                  count; ``live --mesh 4`` with its oracle and the mesh
-                 drill (``--drills mesh --mesh 4``).  Phase 19's two
+                 drill (``--drills mesh --mesh 4``).  Phase 20's two
                  training processes run beside these.
 15-18. ``serve_qwen3_14b``, ``serve_rwkv6_7b``, ``serve_deepseek_moe_16b``
                  (the MoE's one-shard ``vsn`` dispatch, each decode lane
@@ -144,7 +144,25 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
                  moving more, both token-invisible, and a float32 copy
                  cut to 4 layers token-identical to ``reference_decode``
                  (see ``serve_full_width``).
-19. ``train_hymba_1_5b`` — ``repro_torch.launch.train`` on hymba-1.5b at
+19. ``moe_mesh`` — right after ``serve_deepseek_moe_16b``, over the
+                 weights it drew: deepseek-moe-16b at full width and
+                 depth in bf16, 8 prompts of 128 tokens and 16 decode
+                 steps through ``prefill_with_cache`` and ``decode_step``
+                 with no mesh, then under ``use_rules(make_host_mesh(1,
+                 4))`` (the ``vsn`` MoE over 4 expert shards of 16
+                 experts, time-sharing the card) fed the same tokens:
+                 in the counted mesh run every MoE layer's ``dropped``
+                 equal to the one-shard dispatch's on the same input and
+                 its output within 4 bfloat16 roundings,
+                 ``flash_attention`` launched once a layer a forward, no
+                 byte between devices, first tokens equal but at near
+                 ties, the logits' median relative gap within a stated
+                 limit; a float32 4-layer copy card against CPU, each
+                 MoE layer and the logits within bfloat16 limits; decode-step
+                 ms p50, device operations a step, peak GB; then the
+                 dry-run cell ``deepseek_moe_16b decode_32k`` on the
+                 single-pod placeholder mesh (see ``moe_mesh``).
+20. ``train_hymba_1_5b`` — ``repro_torch.launch.train`` on hymba-1.5b at
                  full width and depth in bf16 (batch 8 of 128 tokens, 8
                  microbatches), 10 steps then a resume to 20, each a
                  process of its own (run beside phase 14): finite printed losses, the last
@@ -158,7 +176,7 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
                  must fail; timed and profiled steps (see
                  ``train_hymba_1_5b``).
 
-Phases 3 to 19 are the main path: each zeroes the launch counts right
+Phases 3 to 20 are the main path: each zeroes the launch counts right
 before its card run and reads them right after (``launchers`` and
 ``train_hymba_1_5b`` read each of their processes' counts), and the
 ``{"kernels": [...]}`` line reports their sum with phase 2's times.
@@ -186,6 +204,11 @@ names after the checkout pick some of these rows.
 
 times each drill of ``elastic_drill`` alone on the card (``drill_times``):
 why the ``launchers`` phase runs the drills it runs.
+
+    python3 chip_smoke.py --moe-mesh
+
+runs the ``moe_mesh`` phase alone (its weights drawn from seed 0), the
+shards round-robin over the visible cards: one a card on four.
 """
 
 import dataclasses
@@ -3594,7 +3617,7 @@ def _free_card(dev) -> None:
 
 def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
                      max_new=32, lanes=4, ticks=24, check_layers=4,
-                     reduced=False, eager_rounds=160):
+                     reduced=False, eager_rounds=160, keep=None):
     """``arch`` at its published width and depth in bfloat16, parameters
     drawn on the card from seed 0, through the serving entry points
     (``build_runtime`` over a ``RequestSource`` -> ``AsyncStreamRuntime``
@@ -3623,7 +3646,9 @@ def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
     p50 / p99 and prefill p50 (the engine's spans), and a profiled round
     (device operations, host syncs, busy share).  The defaults are the
     card's run; ``reduced=True`` with smaller arguments rehearses the
-    phase on the CPU (``dev="cpu"``, both engines eager)."""
+    phase on the CPU (``dev="cpu"``, both engines eager).  ``keep`` (a
+    dict) takes the drawn parameters and the config (``params``,
+    ``cfg``) for a later phase."""
     from repro_torch import obs as _obs
     from repro_torch.api import RuntimeConfig, build_runtime
     from repro_torch.configs import canon, get_config
@@ -3802,6 +3827,8 @@ def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
                           dropped_tokens=int(eng.dropped),
                           dropped_main_path=main_dropped,
                           dropped_main_path_decode=main_dropped_decode)
+    if keep is not None:
+        keep.update(params=eng.params, cfg=mcfg)
     del rt, pipe, eng, eager
     _free_card(dev)
 
@@ -3859,7 +3886,336 @@ def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
 
 
 # ---------------------------------------------------------------------------
-# phase 19: training hymba-1.5b at full width and depth
+# phase 19: the vsn MoE over 4 expert shards of the model mesh
+# ---------------------------------------------------------------------------
+
+MOE_MESH_SHARDS = 4
+# a layer's output against one shard's (or the CPU's), over the latter's
+# largest value: each of the shards' bf16 additions may round a value by
+# up to 2^-8 of it (measured 0.70 % at full width on an NVIDIA H100 80GB
+# HBM3, 700.00 W); a float32 whole forward, card against CPU, over its
+# largest logit: the same share with
+# the shards, one rounding (2^-7) without
+MOE_MESH_LAYER_RTOL = MOE_MESH_SHARDS * 2.0 ** -7
+# whole bf16 forwards, 4 shards against 1: the logits' difference over the
+# one-shard logits, both as Frobenius norms, its median over the forwards.
+# The bf16 sums differ, so a route at a near tie may differ between the
+# runs and move that token's output (their worst forward is reported); a
+# fault in the sum moves every forward.  Measured on the CPU at reduced
+# size (2 and 6 layers, seeds 0-2, 8 x 32 tokens, 16 steps): medians
+# 0.0069-0.037, with one shard's partial lost 0.17-0.60 at every forward;
+# at full width on an NVIDIA H100 80GB HBM3, 700.00 W: median 0.083, worst
+# 0.152
+MOE_MESH_LOGITS_RTOL = 0.15
+# a first token may differ only where the no-mesh run's top-2 gap is below
+# this share of its largest logit.  At full width the rows' top-2 gaps
+# reach 0.07 of it (measured, as above): past 0.05 three of 8 rows are
+# checked; at reduced size at least one row of each seed
+MOE_MESH_TIE_RTOL = 0.05
+
+
+def _moe_mesh_run(mcfg, params, prompts, steps, max_seq, dev, mesh=None,
+                  tokens=None, layer_check=None):
+    """Prefill ``prompts`` ([B, S] on ``dev``) through
+    ``model.prefill_with_cache``, then ``steps`` ``decode_step``s, under
+    ``use_rules(mesh)`` (none: no mesh): fed ``tokens`` (a list of [B]
+    tensors) when given, else each step's greedy tokens.  ``layer_check``
+    (a list, and ``twin(p, x, cfg, kw) -> (y, dropped)``, by default the
+    one-shard dispatch on the same input): every MoE layer's call also
+    runs ``twin``, and the list takes (dropped, the twin's dropped, the
+    outputs' largest difference over the twin's largest value).  ->
+    (logits of every forward, the tokens fed, ``dropped`` of every
+    forward)."""
+    import contextlib
+    from repro_torch.models import model as M, moe, sharding, transformer
+    ctx = (sharding.use_rules(mesh) if mesh is not None
+           else contextlib.nullcontext())
+    forward = moe.moe_forward
+    log, twin = layer_check or (None, None)
+    twin = twin or (lambda p, x, cfg, kw: forward(p, x, cfg, **kw,
+                                                  n_shards=1))
+
+    def checked(p, x, cfg, **kw):
+        y, d = forward(p, x, cfg, **kw)
+        y1, d1 = twin(p, x, cfg, kw)
+        y1 = y1.float().to(y.device)
+        log.append((int(d), int(d1), float(
+            (y.float() - y1).abs().max() / y1.abs().max())))
+        return y, d
+    b, s = prompts.shape
+    logits, fed, dropped = [], [], []
+    if layer_check is not None:
+        moe.moe_forward = checked
+    try:
+        with ctx, torch.no_grad():
+            caches, states = transformer.init_caches(mcfg, b, max_seq,
+                                                     device=dev)
+            lg, caches, states, aux = M.prefill_with_cache(
+                params, prompts, caches, states, cfg=mcfg, with_aux=True)
+            logits.append(lg.float())
+            dropped.append(int(aux))
+            for i in range(steps):
+                tok = lg.argmax(-1) if tokens is None else tokens[i]
+                fed.append(tok)
+                lg, caches, states, aux = M.decode_step(
+                    params, caches, states, tok, s + i, cfg=mcfg,
+                    with_aux=True)
+                logits.append(lg.float())
+                dropped.append(int(aux))
+    finally:
+        moe.moe_forward = forward
+    return logits, fed, dropped
+
+
+def moe_mesh(dev, params=None, mcfg=None, *, batch=8, prompt_len=128,
+             steps=16, check_layers=4, dryrun=True):
+    """The ``vsn`` MoE over ``MOE_MESH_SHARDS`` expert shards of a host
+    mesh (``launch.mesh.make_host_mesh(1, 4)``: on one card the shards,
+    16 experts each, time-share it), at deepseek-moe-16b's full width and
+    depth in bfloat16 (``mcfg``, by default ``get_config``'s) with the
+    weights ``serve_deepseek_moe_16b`` drew (seed 0; drawn here when the
+    phase runs alone).  ``batch`` prompts of ``prompt_len`` tokens, then
+    ``steps`` decode steps, through ``model.prefill_with_cache`` and
+    ``decode_step``: first with no mesh (greedy), then under the mesh fed
+    the same tokens, with the kernel launches counted and the copies
+    between devices recorded.  Checks of the mesh run: at every MoE layer
+    of every forward, ``dropped`` equal to the one-shard dispatch's on
+    the same input (the shards take the same tokens) and the output
+    within ``MOE_MESH_LAYER_RTOL``; ``flash_attention`` launched once a
+    layer a forward; no byte copied between devices on one card; the
+    first tokens equal to the no-mesh run's but at a near tie
+    (``MOE_MESH_TIE_RTOL``, at least one row past it); the logits'
+    relative gap to the no-mesh run's within ``MOE_MESH_LOGITS_RTOL`` at
+    the median forward.  The runs' hidden states differ by the bfloat16
+    sums, so a route at a near tie may differ between them and their
+    per-forward ``dropped`` is reported, not held.  A float32 copy cut
+    to ``check_layers`` layers (full width, drawn from seed 3) under the
+    same mesh, a prefill and two decode steps, card against CPU: each
+    MoE layer fed the card's input
+    (``dropped`` equal, the output within ``MOE_MESH_LAYER_RTOL``) and
+    the whole forwards' logits within ``MOE_MESH_LAYER_RTOL`` of their
+    largest value (2^-7 without the mesh): the vsn sum's bfloat16
+    rounding, the reference's, turns float32 differences into bfloat16
+    steps, so 1e-4 cannot hold.  Reported: decode-step ms p50 with 4
+    shards and with one (8 steps after a prefill), the device operations
+    a step of each, the peak GB, the bytes copied between devices, and
+    the dry-run of ``deepseek_moe_16b decode_32k`` on the single-pod
+    placeholder mesh (the ``vsn`` MoE under ``local_map``)."""
+    import contextlib
+    from repro_torch.configs import canon, get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import (collective_bytes, make_host_mesh,
+                                         record_copies)
+    from repro_torch.models import model as M, sharding, transformer
+    from repro_torch.models.moe import moe_forward
+    from repro_torch.tree import tree_map
+    dev = torch.device(dev)
+    cuda = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
+    if mcfg is None:
+        mcfg = get_config(canon("deepseek-moe-16b"))
+    if params is None:
+        params = transformer.init_params(mcfg, seed=0, device=dev)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    mesh = make_host_mesh(1, MOE_MESH_SHARDS, dev)
+    devices = sum(mesh.devices, ())
+    rng = np.random.default_rng(5)
+    prompts = torch.from_numpy(rng.integers(
+        1, mcfg.vocab, (batch, prompt_len))).to(dev)
+    timed_steps = 8
+    max_seq = prompt_len + max(steps, timed_steps + 4)
+    clock = [time.perf_counter()]
+    split = {}
+
+    def lap(name):
+        split[name] = time.perf_counter() - clock[0]
+        clock[0] = time.perf_counter()
+    one_logits, toks, one_drop = _moe_mesh_run(mcfg, params, prompts, steps,
+                                               max_seq, dev)
+    lap("one_shard_run")
+    if len(set(devices)) > 1:
+        # the shards' experts move to their cards on first use: before
+        # the copies are recorded
+        _moe_mesh_run(mcfg, params, prompts[:, :8], 0, max_seq, dev, mesh)
+    # each MoE layer also against the one-shard dispatch on its input,
+    # which launches no kernel and copies nothing between devices
+    layers = []
+    dispatch.reset_launches()
+    with record_copies() as copies:
+        mesh_logits, _, mesh_drop = _moe_mesh_run(
+            mcfg, params, prompts, steps, max_seq, dev, mesh, toks,
+            layer_check=(layers, None))
+    launches = {k.name: k.launches for k in dispatch.registered().values()
+                if k.launches}
+    moved = collective_bytes(copies, devices)
+    lap("mesh_run")
+    forwards = steps + 1
+    gaps = [float((a - b).abs().max())
+            for a, b in zip(one_logits, mesh_logits)]
+    rel = [float((a - b).norm() / a.norm())
+           for a, b in zip(one_logits, mesh_logits)]
+    scale = float(one_logits[0].abs().max())
+    top2 = one_logits[0].topk(2, dim=-1).values
+    first = one_logits[0].argmax(-1), mesh_logits[0].argmax(-1)
+    row_gap = (one_logits[0] - mesh_logits[0]).abs().amax(-1).tolist()
+    if cuda:
+        assert launches.get("flash_attention") == mcfg.n_layers * forwards, \
+            launches
+        if len(set(devices)) == 1:
+            assert not moved, moved
+    assert len(layers) == mcfg.n_layers * forwards, len(layers)
+    assert all(d == d1 for d, d1, _ in layers), \
+        [(i, d, d1) for i, (d, d1, _) in enumerate(layers) if d != d1]
+    assert max(g for _, _, g in layers) <= MOE_MESH_LAYER_RTOL, layers
+    # a first token may differ only at a near tie of the no-mesh run; at
+    # least one row must be past it
+    tie = (top2[:, 0] - top2[:, 1]) <= MOE_MESH_TIE_RTOL * scale
+    assert not bool(tie.all()), ("every first token at a near tie", top2)
+    assert bool(((first[0] == first[1]) | tie).all()), (
+        "first tokens differ with the expert shards", first, top2)
+    assert statistics.median(rel) <= MOE_MESH_LOGITS_RTOL, rel
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
+
+    def timed(m):
+        caches, states = transformer.init_caches(mcfg, batch, max_seq,
+                                                 device=dev)
+        ctx = sharding.use_rules(m) if m else contextlib.nullcontext()
+        step = lambda i: M.decode_step(params, caches, states, toks[i % len(
+            toks)], prompt_len + i, cfg=mcfg)
+        with ctx, torch.no_grad():
+            M.prefill_with_cache(params, prompts, caches, states, cfg=mcfg)
+            prof = device_profile(step, 4, cpu_ops=False)
+            ms = []
+            for i in range(4, 4 + timed_steps):
+                sync()
+                t0 = time.perf_counter()
+                step(i)
+                sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        return prof, ms
+    prof, ms = {}, {}
+    for name, m in (("shards", mesh), ("one", None)):
+        prof[name], ms[name] = timed(m)
+    del one_logits, mesh_logits
+    _free_card(dev)
+    lap("timed")
+
+    # float32, full width, check_layers layers, under the mesh, card
+    # against CPU: each MoE layer on the card's input, and whole forwards
+    cfg32 = dataclasses.replace(mcfg, dtype="float32", n_layers=check_layers)
+    p32 = transformer.init_params(cfg32, seed=3, device=dev)
+    cpu = torch.device("cpu")
+    h32 = tree_map(lambda t: t.to(cpu), p32)
+    twins = {id(a["moe"]): b["moe"] for a, b in zip(p32["layers"],
+                                                     h32["layers"])}
+    cpu_mesh = make_host_mesh(1, MOE_MESH_SHARDS, cpu)
+
+    def on_cpu(p, x, cfg, kw):
+        with sharding.use_rules(cpu_mesh):
+            return moe_forward(twins[id(p)], x.cpu(), cfg, **kw)
+    toks2 = [t.cpu() for t in toks[:2]]
+
+    def f32_gap(card, host):
+        scale = max(float(b.abs().max()) for b in host)
+        gap = max(float((a.cpu() - b).abs().max())
+                  for a, b in zip(card, host))
+        return gap, scale
+    f32_layers = []
+    card, _, card_drop = _moe_mesh_run(cfg32, p32, prompts, 2, max_seq, dev,
+                                       mesh, toks[:2],
+                                       layer_check=(f32_layers, on_cpu))
+    host, _, host_drop = _moe_mesh_run(cfg32, h32, prompts.cpu(), 2, max_seq,
+                                       cpu, cpu_mesh, toks2)
+    f32, f32_scale = f32_gap(card, host)
+    card1, _, _ = _moe_mesh_run(cfg32, p32, prompts, 2, max_seq, dev, None,
+                                toks[:2])
+    host1, _, _ = _moe_mesh_run(cfg32, h32, prompts.cpu(), 2, max_seq, cpu,
+                                None, toks2)
+    f32_one, f32_one_scale = f32_gap(card1, host1)
+    assert len(f32_layers) == check_layers * 3, len(f32_layers)
+    assert all(d == d1 for d, d1, _ in f32_layers), f32_layers
+    assert max(g for _, _, g in f32_layers) <= MOE_MESH_LAYER_RTOL, \
+        f32_layers
+    assert f32 <= MOE_MESH_LAYER_RTOL * f32_scale, (f32, f32_scale)
+    assert f32_one <= 2.0 ** -7 * f32_one_scale, (f32_one, f32_one_scale)
+    del p32, h32, twins, card, host, card1, host1
+    _free_card(dev)
+    lap("float32_copy")
+
+    out = dict(phase="moe_mesh", arch=mcfg.name, layers=mcfg.n_layers,
+               experts=mcfg.moe.n_experts, shards=MOE_MESH_SHARDS,
+               devices=[str(d) for d in devices],
+               batch=batch, prompt_len=prompt_len, decode_steps=steps,
+               first_tokens_equal=int((first[0] == first[1]).sum()),
+               first_tokens_top2_gap=(top2[:, 0] - top2[:, 1]).tolist(),
+               first_tokens_near_tie=int(tie.sum()),
+               prefill_row_max_abs_gap=row_gap,
+               logits_max_abs=scale,
+               dropped={"shards": mesh_drop, "one": one_drop},
+               layer_dropped_equal=len(layers),
+               layer_max_rel_gap=max(g for _, _, g in layers),
+               logits_rel_gap=rel, logits_rel_gap_median=statistics.median(
+                   rel), logits_rel_gap_max=max(rel),
+               logits_rtol=MOE_MESH_LOGITS_RTOL,
+               prefill_logits_max_abs_gap=gaps[0],
+               logits_max_abs_gap=max(gaps),
+               decode_ms_p50={k: statistics.median(v)
+                              for k, v in ms.items()},
+               device_ops_per_step={
+                   k: v["device_ops_per_tick"] for k, v in prof.items()},
+               profile=prof, peak_gb=peak_gb,
+               bytes_between_devices=moved.get("device-to-device", 0),
+               copies_between_devices=sum(
+                   1 for src, dst, _ in copies if src != dst),
+               seconds_by_part=split,
+               float32_copy=dict(
+                   layers=check_layers, moe_layers_checked=len(f32_layers),
+                   layer_max_rel_gap=max(g for _, _, g in f32_layers),
+                   dropped=card_drop, host_dropped=host_drop,
+                   logits_max_abs=f32_scale, logits_max_abs_gap=f32,
+                   logits_max_abs_gap_one_shard=f32_one),
+               launches=launches)
+    if dryrun:
+        from repro_torch.launch import dryrun as D
+        t0 = time.perf_counter()
+        cell = D.run_cell("deepseek_moe_16b", "decode_32k", False)
+        cell["seconds"] = time.perf_counter() - t0
+        out["dryrun"] = cell
+        print(D.row(cell), flush=True)
+        if cell["status"] != "ok":
+            raise AssertionError(f"dry-run cell: {cell['status']}")
+    print(f"moe_mesh decode ms p50: {MOE_MESH_SHARDS} shards "
+          f"{out['decode_ms_p50']['shards']:.3f}, 1 shard "
+          f"{out['decode_ms_p50']['one']:.3f}", flush=True)
+    print(f"moe_mesh device ops a step: {MOE_MESH_SHARDS} shards "
+          f"{out['device_ops_per_step']['shards']}, 1 shard "
+          f"{out['device_ops_per_step']['one']}", flush=True)
+    print(f"moe_mesh peak GB: {peak_gb}", flush=True)
+    return out
+
+
+def moe_mesh_alone() -> int:
+    """``--moe-mesh``: the ``moe_mesh`` phase alone, the kernels built
+    first; its shards go round-robin over the visible cards (one a card on
+    a four-card machine)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+    import repro_torch.kernels.flash_attention.ops      # noqa: F401
+    import repro_torch.kernels.linear_scan.ops          # noqa: F401
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build()
+    build.library()
+    t0 = time.perf_counter()
+    out = moe_mesh(torch.device("cuda", 0))
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# phase 20: training hymba-1.5b at full width and depth
 # ---------------------------------------------------------------------------
 
 TRAIN_ARGS = ("--arch", "hymba-1.5b", "--batch", "8", "--seq", "128")
@@ -4263,6 +4619,9 @@ def main(argv) -> int:
         print(card_line(), flush=True)
         drill_times()
         return 0
+    if argv[:1] == ["--moe-mesh"]:
+        print(card_line(), flush=True)
+        return moe_mesh_alone()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build, dispatch
     import repro_torch.kernels.scalegate_merge.ops      # noqa: F401
@@ -4311,16 +4670,23 @@ def main(argv) -> int:
         phase(run)
     with tempfile.TemporaryDirectory() as d, \
             concurrent.futures.ThreadPoolExecutor(1) as pool:
-        # phase 19's two training processes run beside the launchers
+        # phase 20's two training processes run beside the launchers
         # phase's, which are host-bound and hold little of the card's
         # memory; the serving phases start once both are done
         ck = str(pathlib.Path(d) / "ck")
         trained = pool.submit(train_launchers, dev, ck)
         phase(launchers)
         runs = trained.result()
+        kept = {}
         for arch in ("qwen3-14b", "rwkv6-7b", "deepseek-moe-16b",
                      "hymba-1.5b"):
-            phase(functools.partial(serve_full_width, arch=arch))
+            moe = arch == "deepseek-moe-16b"
+            phase(functools.partial(serve_full_width, arch=arch,
+                                    keep=kept if moe else None))
+            if moe:
+                # the model mesh over the weights the serve phase drew
+                phase(lambda dev: moe_mesh(dev, kept.pop("params"),
+                                           kept.pop("cfg")))
         phase(lambda dev: train_hymba_1_5b(dev, runs, ck))
     launches = {name: sum(ph["launches"].get(name, 0) for ph in phases)
                 for name in dispatch.registered()}

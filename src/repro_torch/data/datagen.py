@@ -9,6 +9,8 @@ reference generator, here as the port's ``TupleBatch``es on ``device``.
                   nearby-word pairs at distance <= ``pair_dist``.
 * ``scalejoin`` — Q3-Q5: two streams, payload attributes uniform in
                   [1, 10000].
+* ``nyse``      — Q6: trades with a bursty rate in [0, 8000] t/s, payload
+                  [company id, normalized distance from its average].
 * ``token_batches`` — the training launcher's LM corpus, numpy batches
                   as the reference yields them.
 """
@@ -80,6 +82,30 @@ def scalejoin(rng: np.random.Generator, *, n_ticks: int, tick: int,
         src = rng.integers(0, 2, tick).astype(np.int32)
         payload = rng.uniform(1, 10000, (tick, payload_width)
                               ).astype(np.float32)
+        yield T.make_batch(taus, payload, keys=keys, source=src, kmax=k_virt,
+                           device=device)
+
+
+def nyse(rng: np.random.Generator, *, n_ticks: int, tick: int,
+         n_companies: int = 10, k_virt: int = 64,
+         device=None) -> Iterator[T.TupleBatch]:
+    """Q6-style trades: bursty rate, payload [id, ND] (normalized distance
+    precomputed at ingress, cf. §8.6); self-join feeds both streams."""
+    tau = 0
+    avg = rng.uniform(50, 500, n_companies)
+    keys = np.tile(np.arange(k_virt, dtype=np.int32), (tick, 1))
+    for _ in range(n_ticks):
+        rate = max(float(rng.uniform(0, 8000) *
+                         (1 + 3 * (rng.random() < 0.05))), 100.0)
+        dt = max(int(1000 * tick / rate), 1)
+        taus = np.sort(tau + rng.integers(0, dt, tick)).astype(np.int32)
+        tau = int(taus.max()) + 1
+        ids = rng.integers(0, n_companies, tick)
+        price = avg[ids] * rng.normal(1.0, 0.02, tick)
+        nd = (price - avg[ids]) / avg[ids]
+        payload = np.stack([ids.astype(np.float32),
+                            nd.astype(np.float32)], axis=1)
+        src = rng.integers(0, 2, tick).astype(np.int32)
         yield T.make_batch(taus, payload, keys=keys, source=src, kmax=k_virt,
                            device=device)
 

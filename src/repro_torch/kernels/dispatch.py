@@ -19,6 +19,13 @@ threads at once, so the increment holds a lock.  A call made while a CUDA
 graph is captured launches nothing: inside ``recording()`` it goes to the
 capturing thread's tally instead, and ``add_launches`` adds that tally
 each time the graph is replayed.
+
+Meta tensors (and ``DTensor``s on the meta device, which the dry-run
+places over a placeholder mesh) are traced, never launched: a call runs
+the entry's ``meta`` form where it has one (the output shapes, for a
+plain version too long to trace, such as the scan's step loop), else its
+plain version, through the hook that ``tracing`` installs, which records
+the call.  Nothing counts as a launch.
 """
 
 from __future__ import annotations
@@ -26,12 +33,13 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
 _COUNT_LOCK = threading.Lock()
 _CAPTURE = threading.local()
+_TRACE = threading.local()
 
 
 @dataclasses.dataclass
@@ -44,12 +52,18 @@ class Kernel:
                          # names the reference function whose jax.grad
                          # it computes
     source: str          # CUDA source, relative to the repo root
+    meta: Optional[Callable] = None   # output shapes, for tracing on meta
     launches: int = 0
 
     def __call__(self, *args, **kwargs):
         dev = args[0].device
         if dev.type == "cpu":
             return self.plain(*args, **kwargs)
+        if dev.type == "meta":
+            fn = self.meta or self.plain
+            hook = getattr(_TRACE, "hook", None)
+            return (fn(*args, **kwargs) if hook is None
+                    else hook(self, fn, args, kwargs))
         if dev.type != "cuda":
             raise ValueError(f"{self.name}: unsupported device {dev}")
         out = self.cuda(*args, **kwargs)
@@ -91,6 +105,19 @@ def recording():
         yield tally
     finally:
         _CAPTURE.tally = prev
+
+
+@contextlib.contextmanager
+def tracing(hook: Callable):
+    """Inside this block this thread's kernel calls on meta tensors go
+    through ``hook(kernel, fn, args, kwargs)``, which returns what ``fn``
+    (the meta form or the plain version) returns on them."""
+    prev = getattr(_TRACE, "hook", None)
+    _TRACE.hook = hook
+    try:
+        yield
+    finally:
+        _TRACE.hook = prev
 
 
 def add_launches(tally: Dict[str, int]) -> None:

@@ -82,12 +82,23 @@ def _cuda(r, k, v, w, u=None, s0=None, *, chunk: int = CHUNK):
     return o, s_out
 
 
+def linear_scan_meta(r, k, v, w, u=None, s0=None, *, chunk: int = CHUNK):
+    """The kernel's outputs, ``(o, S_T)``, as empty meta tensors: how a
+    trace on the meta device sees one launch (the plain version would be
+    T steps of operations).  Under a placeholder mesh the models call the
+    scan on each shard's local rows (``sharding.local_blocks``)."""
+    return (r.new_empty(r.shape[:2] + v.shape[-1:]),
+            r.new_empty((r.shape[0], r.shape[2], v.shape[-1]),
+                        dtype=torch.float32))
+
+
 linear_scan_op = dispatch.register(dispatch.Kernel(
     name="linear_scan",
     plain=linear_scan_ref,
     cuda=_cuda,
     replaces="src/repro/kernels/linear_scan/linear_scan.py:104",
     source="src/repro_torch/kernels/csrc/linear_scan.cu",
+    meta=linear_scan_meta,
 ))
 
 
@@ -139,10 +150,19 @@ def _bwd_cuda(r, k, v, w, u=None, s0=None, do=None, ds_t=None):
     return dr, dkk, dvv, dw, du, ds0
 
 
+def linear_scan_bwd_meta(r, k, v, w, u=None, s0=None, do=None, ds_t=None):
+    """The backward's gradients as empty meta tensors (see
+    ``linear_scan_meta``)."""
+    return tuple(None if x is None else torch.empty_like(
+        x, dtype=torch.float32 if x is s0 else x.dtype)
+        for x in (r, k, v, w, u, s0))
+
+
 linear_scan_bwd_op = dispatch.register(dispatch.Kernel(
     name="linear_scan_bwd",
     plain=linear_scan_bwd_ref,
     cuda=_bwd_cuda,
+    meta=linear_scan_bwd_meta,
     replaces="jax.grad of src/repro/kernels/linear_scan/ref.py:7 "
              "linear_scan_ref",
     source="src/repro_torch/kernels/csrc/linear_scan_bwd.cu",

@@ -1,13 +1,17 @@
-"""The stream mesh and its copy accounting.
+"""Meshes and their copy accounting.
 
 Held against ``src/repro/launch/mesh.py`` (``make_stream_mesh``,
-``collective_bytes``, ``host_transfer_ops``).  The reference builds a 1-D
-``jax`` mesh and reads its witnesses out of compiled HLO.  Here a mesh is
-a list of devices in one controller process, one a shard
-(``core.runtime.MeshPipeline`` drives it); shards may share a device, as
-the reference's CI shares one CPU among devices forced by ``XLA_FLAGS``.
-On one card every shard is on ``cuda:0``: that run shows the
-partitioning and the zero-byte switch, not a speed-up.
+``make_host_mesh``, ``make_production_mesh``, ``collective_bytes``,
+``host_transfer_ops``).  The reference builds ``jax`` meshes and reads its
+witnesses out of compiled HLO.  Here the stream mesh and the host model
+mesh are devices in one controller process, one a shard
+(``core.runtime.MeshPipeline`` and the ``vsn`` MoE drive them); shards may
+share a device, as the reference's CI shares one CPU among devices forced
+by ``XLA_FLAGS``.  On one card every shard is on ``cuda:0``: that run
+shows the partitioning and the zero-byte switch, not a speed-up.  The
+production mesh is a placeholder, as the reference's 256 or 512 forced
+host devices are: a ``DeviceMesh`` over a fake process group that only
+the dry-run traces against, on the meta device.
 
 ``collective_bytes`` sums the bytes that the copies recorded during a
 step (``record_copies``: every aten copy whose source and destination
@@ -85,6 +89,71 @@ def make_stream_mesh(n_shards: Optional[int] = None,
         visible = [dev]
     n = n_shards or len(visible)
     return StreamMesh(tuple(visible[j % len(visible)] for j in range(n)))
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelMesh:
+    """A host mesh: ``devices[i][j]`` runs the shard at data index i and
+    model index j, all from one process."""
+    devices: Tuple[Tuple[torch.device, ...], ...]
+    axis_names: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": len(self.devices), "model": len(self.devices[0])}
+
+
+def make_host_mesh(data: int = 1, model: int = 1, device=None) -> ModelMesh:
+    """A ``(data, model)`` grid over the visible devices of ``device``'s
+    type (None: the card), round-robin in row-major order as
+    ``make_stream_mesh`` places its shards: on one card every shard is
+    ``cuda:0``."""
+    flat = make_stream_mesh(data * model, device).devices
+    return ModelMesh(tuple(flat[i * model:(i + 1) * model]
+                           for i in range(data)))
+
+
+@dataclasses.dataclass(frozen=True)
+class ProductionMesh:
+    """A placeholder mesh: ``device_mesh`` spans the ranks of a fake
+    process group, and tensors placed on it live on the meta device."""
+    device_mesh: object
+    axis_names: Tuple[str, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.device_mesh.shape))
+
+
+@contextlib.contextmanager
+def make_production_mesh(*, multi_pod: bool = False,
+                         shape: Optional[Tuple[int, ...]] = None):
+    """The reference's production mesh, ``(16, 16)`` over ``("data",
+    "model")`` or ``(2, 16, 16)`` over ``("pod", "data", "model")``, as a
+    placeholder: a fake process group of 256 or 512 ranks is created on
+    entry and destroyed on exit (``shape`` overrides the sizes, keeping
+    the axes: the tests trace on ``(2, 2)`` and ``(2, 2, 2)``).  One
+    process group at a time: entering raises if one exists."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape = tuple(shape or ((2, 16, 16) if multi_pod else (16, 16)))
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} does not match axes {axes}")
+    if dist.is_initialized():
+        raise RuntimeError("a process group already exists")
+    size = 1
+    for n in shape:
+        size *= n
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=size)
+    try:
+        yield ProductionMesh(init_device_mesh("cpu", shape,
+                                              mesh_dim_names=axes), axes)
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------

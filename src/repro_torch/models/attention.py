@@ -28,6 +28,8 @@ import torch
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import init_dense, rms_norm, rope
+from repro_torch.models.sharding import (axis_resolves, merge_heads, shard,
+                                         split_heads, write_positions)
 
 
 def init_attn(gen, cfg: ModelConfig, dtype, device=None):
@@ -63,9 +65,14 @@ def attn_forward(p, x, positions, cfg: ModelConfig, *,
     own are masked and never read); ``index`` is then ``cache_index``'s
     result, made by the caller once for all layers."""
     b, s, _ = x.shape
-    q = (x @ p["wq"]).view(b, s, cfg.n_heads, cfg.head_dim)
-    k = (x @ p["wk"]).view(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ p["wv"]).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
+    k = split_heads(x @ p["wk"], cfg.n_kv_heads, cfg.head_dim)
+    v = split_heads(x @ p["wv"], cfg.n_kv_heads, cfg.head_dim)
+    if axis_resolves("heads"):
+        # heads divide TP: pin the clean head-parallel layout.  Otherwise
+        # leave q/k/v to propagation: pinning would force an all-gather of
+        # the projection outputs.
+        q = shard(q, "batch", "seq", "heads", "head_dim")
     if cfg.qk_norm:
         q = rms_norm(q, p["q_scale"], cfg.norm_eps)
         k = rms_norm(k, p["k_scale"], cfg.norm_eps)
@@ -76,18 +83,24 @@ def attn_forward(p, x, positions, cfg: ModelConfig, *,
     if cache is not None:
         ck, cv = cache["k"], cache["v"]
         rows, pos, q_offset, kv_index = index
-        ck[rows, pos] = k.to(ck.dtype)
-        cv[rows, pos] = v.to(cv.dtype)
+        write_positions(ck, rows, pos, k, kv_index)
+        write_positions(cv, rows, pos, v, kv_index)
+        if axis_resolves("kv_seq") or axis_resolves("kv_heads"):
+            ck = shard(ck, "batch", "kv_seq", "kv_heads", "head_dim")
+            cv = shard(cv, "batch", "kv_seq", "kv_heads", "head_dim")
         out = flash_attention(
             q.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2),
             causal=True, window=window, n_rep=n_rep, q_offset=q_offset,
             kv_index=kv_index)
     else:
+        if axis_resolves("kv_heads"):
+            k = shard(k, "batch", "seq", "kv_heads", "head_dim")
+            v = shard(v, "batch", "seq", "kv_heads", "head_dim")
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                  v.transpose(1, 2), causal=True,
                                  window=window, n_rep=n_rep)
-    out = out.transpose(1, 2).reshape(b, s, cfg.q_dim)
-    return out @ p["wo"], cache
+    out = merge_heads(out.transpose(1, 2))
+    return shard(out @ p["wo"], "batch", "seq", "embed"), cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,

@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.sharding import sharded_rows
+
 
 def rms_norm(x, scale, eps: float = 1e-6):
     x32 = x.float()
@@ -39,7 +41,9 @@ def swiglu(x, w_gate, w_up, w_down):
 
 
 def embed(tokens, table):
-    return table[tokens]
+    """The rows of ``table`` for ``tokens`` (``sharding.sharded_rows``: a
+    vocab-sharded ``DTensor`` table is read where it lies)."""
+    return sharded_rows(table, tokens)
 
 
 def unembed(x, table):

@@ -81,8 +81,7 @@ def train_step(params, opt_state, batch: Dict[str, Any], *,
     else:
         assert b % m == 0, (b, m)
         mb = b // m
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for p in leaves]
+        acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
         loss = torch.zeros((), dtype=torch.float32, device=labels.device)
         aux = torch.zeros((), dtype=torch.float32, device=labels.device)
         for i in range(m):

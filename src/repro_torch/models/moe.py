@@ -9,9 +9,11 @@ experts is a multi-key tuple (Theorem 1 at model scale).
 * ``dispatch="vsn"``: owner-computes.  Every expert observes the whole
   token block, takes the tokens routed to it (routed first, then in token
   order) up to its capacity, and the partial outputs meet in one sum.  The
-  reference runs it as a ``shard_map`` over the model axis; on one device
-  that is one shard holding every expert, which is what is ported here.
-  More than one shard waits for the model mesh (ROADMAP.md queue 1 item 10).
+  reference runs it as a ``shard_map`` over the model axis: each expert
+  shard owns ``E / n`` experts, routes every token over all of them, and
+  the shards' partials meet in one bfloat16 sum.  The port runs the same
+  shard body over the installed mesh's model axis (``_vsn_moe``), or one
+  shard holding every expert without a mesh.
 
 Both count the pairs they drop (``dropped``, never silent); shared experts
 (deepseek) are a dense SwiGLU added outside the dispatch.  The capacity of
@@ -26,13 +28,14 @@ resolve to the lower expert index first, as ``jax.lax.top_k`` does.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import init_dense, swiglu
+from repro_torch.models.sharding import current_mesh, shard
 
 
 def init_moe(gen, cfg: ModelConfig, dtype, device=None):
@@ -125,8 +128,10 @@ def _sn_moe(p, x, cfg: ModelConfig):
     xe = torch.zeros((g, e * cap + 1, d), dtype=x.dtype, device=x.device)
     xe.scatter_(1, slot[..., None].expand(g, nk, d),
                 x.gather(1, stok[..., None].expand(g, nk, d)))
-    he = _expert_ffn(_per_expert(x, xe[:, :e * cap], cap), p["wg"], p["wu"],
-                     p["wd"])                              # [E, G * cap, D]
+    xe = shard(_per_expert(x, xe[:, :e * cap], cap), "experts", None,
+               "embed")
+    he = _expert_ffn(xe, p["wg"], p["wu"], p["wd"])        # [E, G * cap, D]
+    he = shard(he, "experts", None, "embed")
     he = he.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d)
     # each pair's row and keep flag, back in (token, choice) order
     pair_slot = torch.empty_like(slot).scatter_(1, order, slot)
@@ -136,39 +141,142 @@ def _sn_moe(p, x, cfg: ModelConfig):
     return y.to(x.dtype), dropped
 
 
-def _vsn_moe(p, x, cfg: ModelConfig):
-    """x [G, n, D]: the reference's ``_vsn_body`` with one shard holding
-    all experts.  Each expert takes the first ``cap`` tokens routed to it
-    (a stable sort of ``~hit``: routed first, in token order), the partial
-    outputs are summed in float32 and rounded to bfloat16, the reference's
-    dtype for its cross-shard sum (a no-op sum with one shard)."""
+def _vsn_shard(x, router, wg, wu, wd, cfg: ModelConfig, lo: int):
+    """The reference's ``_vsn_body`` for one expert shard: x [G, n, D]
+    (every expert shard observes the whole token block), ``wg``/``wu``/
+    ``wd`` the shard's ``[E_loc, ...]`` experts, global ids ``[lo, lo +
+    E_loc)``.  Every token routes over all ``n_experts`` (global top-k);
+    each of the shard's experts takes the first ``cap`` tokens routed to
+    it (a stable sort of ``~hit``: routed first, in token order), ``cap``
+    counted over the global ``n_experts``.  -> (the shard's partial output
+    summed in float32 and rounded to bfloat16 [G, n, D], its pairs
+    dropped [G])."""
     m = cfg.moe
     g, n, d = x.shape
-    e = m.n_experts
+    e_loc = wg.shape[0]
     cap = _capacity(cfg, n)
-    w, idx = _route(x, p["router"], m.top_k)               # [G, n, k]
-    hit = F.one_hot(idx, e).sum(dim=2).transpose(1, 2) > 0  # [G, E, n]
+    w, idx = _route(x, router, m.top_k)                    # [G, n, k] global
+    if e_loc == m.n_experts:                               # one shard
+        local, sel = None, idx
+        hit = F.one_hot(idx, e_loc).sum(dim=2).transpose(1, 2) > 0
+    else:
+        local = (idx >= lo) & (idx < lo + e_loc)
+        sel = torch.where(local, idx - lo, e_loc)          # e_loc: elsewhere
+        hit = F.one_hot(sel, e_loc + 1)[..., :e_loc].sum(dim=2).transpose(
+            1, 2) > 0                                      # [G, E_loc, n]
     order = torch.argsort((~hit).to(torch.uint8), dim=2, stable=True)
-    take = order[..., :cap]                                # [G, E, C]
+    take = order[..., :cap]                                # [G, E_loc, C]
     c = take.shape[-1]
     took = hit.gather(2, take)
     dropped = (hit.sum((1, 2)) - took.sum((1, 2))).to(torch.int32)
-    rows = take.reshape(g, e * c)
-    xe = x.gather(1, rows[..., None].expand(g, e * c, d)) * took.reshape(
-        g, e * c, 1).to(x.dtype)
-    he = _expert_ffn(_per_expert(x, xe, c), p["wg"], p["wu"], p["wd"])
-    he = he.reshape(e, g, c, d).transpose(0, 1).reshape(g, e * c, d)
+    rows = take.reshape(g, e_loc * c)
+    xe = x.gather(1, rows[..., None].expand(g, e_loc * c, d)) * took.reshape(
+        g, e_loc * c, 1).to(x.dtype)
+    he = _expert_ffn(_per_expert(x, xe, c), wg, wu, wd)
+    he = he.reshape(e_loc, g, c, d).transpose(0, 1).reshape(g, e_loc * c, d)
     # where each token sits in each expert's buffer (-1: not taken)
-    at = torch.full((g, e, n), -1, dtype=torch.int64, device=x.device)
+    at = torch.full((g, e_loc, n), -1, dtype=torch.int64, device=x.device)
     at.scatter_(2, take, torch.where(took, torch.arange(
-        c, device=x.device).expand(g, e, c), -1))
-    pos = at.gather(1, idx.transpose(1, 2)).transpose(1, 2)  # [G, n, k]
-    y = _combine(he, idx * c + pos.clamp(min=0), w * (pos >= 0), idx)
-    return y.to(torch.bfloat16).to(x.dtype), dropped
+        c, device=x.device).expand(g, e_loc, c), -1))
+    loc = sel if local is None else sel.clamp(max=e_loc - 1)
+    pos = at.gather(1, loc.transpose(1, 2)).transpose(1, 2)  # [G, n, k]
+    if local is not None:
+        pos = torch.where(local, pos, -1)
+    y = _combine(he, loc * c + pos.clamp(min=0), w * (pos >= 0), idx)
+    return y.to(torch.bfloat16), dropped
+
+
+def _on(t, dev, lo=None, n=None):
+    """``t[lo:lo + n]`` (or ``t``) on ``dev``: a view where ``t`` lies
+    there, else a copy made once and kept on ``t`` (an attribute, so it
+    lives as long as the weight)."""
+    part = t if lo is None else t[lo:lo + n]
+    if part.device == dev:
+        return part
+    copies = t.__dict__.setdefault("_shard_copies", {})
+    key = (dev, lo, n)
+    if key not in copies:
+        copies[key] = part.to(dev)
+    return copies[key]
+
+
+def _vsn_moe(p, x, cfg: ModelConfig, n_shards=None):
+    """x [G, n, D] over the model axis's expert shards.  ``n_shards``
+    given: that many shards, all on x's device.  Else the installed mesh
+    decides: none, one shard; a host mesh (``launch.mesh.ModelMesh``),
+    its ``model`` shards, shard j on the devices of column j, its
+    ``data`` rows splitting the n tokens into contiguous blocks as the
+    reference's ``P(dp)`` does; a placeholder mesh, ``_vsn_placeholder``.
+    The shards' bfloat16 partials meet on x's device in one sum, added in
+    shard order with each addition rounded to bfloat16: XLA's order and
+    precision for the reference's ``psum`` of bfloat16 over the axis.
+    ``dropped`` is summed over the shards."""
+    mesh = current_mesh() if n_shards is None else None
+    if getattr(mesh, "device_mesh", None) is not None:
+        return _vsn_placeholder(p, x, cfg, mesh)
+    grid = (mesh.devices if mesh is not None
+            else ((x.device,) * (n_shards or 1),))
+    n_model = len(grid[0])
+    e = cfg.moe.n_experts
+    if e % n_model:
+        raise ValueError(f"{e} experts do not split over {n_model} shards")
+    e_loc = e // n_model
+    g, n, d = x.shape
+    if n % len(grid):
+        raise ValueError(f"{n} tokens do not split over {len(grid)} data "
+                         f"shards")
+    blk = n // len(grid)
+    ys, dropped = [], None
+    for i, devs in enumerate(grid):
+        xi = x[:, i * blk:(i + 1) * blk]
+        y = None
+        for j, dev in enumerate(devs):
+            lo = j * e_loc
+            part, drop = _vsn_shard(
+                xi.to(dev), _on(p["router"], dev),
+                *(_on(p[k], dev, lo, e_loc) for k in ("wg", "wu", "wd")),
+                cfg, lo)
+            part = part.to(x.device)
+            y = part if y is None else y + part
+            drop = drop.to(x.device)
+            dropped = drop if dropped is None else dropped + drop
+        ys.append(y)
+    y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
+    return y.to(x.dtype), dropped
+
+
+def _vsn_placeholder(p, x, cfg: ModelConfig, mesh):
+    """The reference's ``shard_map`` over a placeholder mesh: the shard
+    body under ``local_map`` with the experts ``Shard(0)`` over "model"
+    and x's token block replicated over it; each shard's bfloat16 partial
+    leaves as ``Partial`` over "model" and is all-reduced in bfloat16
+    (the one collective), ``dropped`` likewise."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    dm = mesh.device_mesh
+    axes = mesh.axis_names
+    n_model = mesh.shape["model"]
+    e_loc = cfg.moe.n_experts // n_model
+    lo = dm.get_local_rank("model") * e_loc
+    e_pl = [Shard(0) if a == "model" else Replicate() for a in axes]
+    rep = [Replicate()] * len(axes)
+    x_pl = list(x.placements)
+    y_pl = [Partial() if a == "model" else pl for a, pl in zip(axes, x_pl)]
+    # each data block drops its own pairs: their total is a sum over data
+    d_pl = [Partial() if isinstance(pl, Shard) or a == "model" else pl
+            for a, pl in zip(axes, x_pl)]
+    body = local_map(
+        lambda xl, r, wg, wu, wd: _vsn_shard(xl, r, wg, wu, wd, cfg, lo),
+        out_placements=(y_pl, d_pl),
+        in_placements=(x_pl, rep, e_pl, e_pl, e_pl), device_mesh=dm)
+    y, dropped = body(x, p["router"], p["wg"], p["wu"], p["wd"])
+    y = y.redistribute(dm, x_pl)
+    return y.to(x.dtype), dropped
 
 
 def moe_forward(p, x, cfg: ModelConfig, *, per_row: bool = False,
-                live=None, n_shards: int = 1
+                live=None, n_shards: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, D] -> (y [B, S, D], dropped: int32 pairs dropped).
 
@@ -176,19 +284,20 @@ def moe_forward(p, x, cfg: ModelConfig, *, per_row: bool = False,
     row); otherwise the B * S tokens form one group.  ``live`` (bool [B],
     with ``per_row``) names the rows whose drops count: the serving
     engine's pad rows route too, but drop nothing of a request.
-    ``n_shards`` is the expert-axis width of ``dispatch="vsn"``; only 1 is
-    ported."""
+    ``n_shards`` is the expert-axis width of ``dispatch="vsn"``: None
+    takes the installed mesh's ``model`` axis (one shard without a mesh),
+    a number that many shards on x's device."""
     b, s, d = x.shape
     m = cfg.moe
-    if m.dispatch == "vsn" and n_shards != 1:
-        raise NotImplementedError(
-            f"dispatch='vsn' over {n_shards} expert shards needs the model "
-            f"mesh, ROADMAP.md queue 1 item 10; the port runs one shard")
+    if m.dispatch == "vsn":
+        # the reference's shard_map takes the tokens as P(dp, None): each
+        # data shard's block, whole over "model"
+        x = shard(x, "batch", None, None)
     xg = x.reshape((b, s, d) if per_row else (1, b * s, d))
     if m.dispatch == "sn":
         y, dropped = _sn_moe(p, xg, cfg)
     elif m.dispatch == "vsn":
-        y, dropped = _vsn_moe(p, xg, cfg)
+        y, dropped = _vsn_moe(p, xg, cfg, n_shards)
     else:
         raise ValueError(f"unknown MoE dispatch {m.dispatch!r}")
     if live is not None:

@@ -19,6 +19,8 @@ import torch.nn.functional as F
 from repro_torch.kernels.linear_scan.ops import linear_scan
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import init_dense, rms_norm
+from repro_torch.models.sharding import (local_blocks, merge_heads, shard,
+                                         split_heads)
 
 LORA_R = 64
 
@@ -79,17 +81,25 @@ def time_mix_forward(p, x, cfg: ModelConfig, shift_state, wkv_state):
     lora = torch.tanh(lerp(p["mu_w"]) @ p["w_lora_a"]) @ p["w_lora_b"]
     w = torch.exp(-torch.exp(p["w0"] + lora.float()))          # (0, 1)
 
-    def heads(t):                          # [B, S, D] -> [B*H, S, hd]
-        return (t.float().view(b, s, h, hd).permute(0, 2, 1, 3)
-                .reshape(b * h, s, hd).contiguous())
+    def heads(t):                          # [B, S, D] -> [B, H, S, hd]
+        return split_heads(t.float(), h, hd).permute(0, 2, 1, 3)
 
-    y, wkv = linear_scan(heads(r), heads(k), heads(v), heads(w),
-                            p["u"].float().view(h, hd),
-                            wkv_state.reshape(b * h, hd, hd).contiguous())
-    y = y.view(b, h, s, hd).permute(0, 2, 1, 3).reshape(b, s, d)
+    def scan(r, k, v, w, u, s0):           # rows: [B*H, ...]
+        bl, hl = r.shape[:2]
+        rows = lambda t: t.reshape(bl * hl, *t.shape[2:]).contiguous()
+        y, wkv = linear_scan(rows(r), rows(k), rows(v), rows(w), u,
+                             rows(s0))
+        return y.view(bl, hl, s, hd), wkv.view(bl, hl, hd, hd)
+
+    # one shard's batch rows and heads at a time under a placeholder mesh
+    bh = ("batch", "state")
+    y, wkv = local_blocks(scan, (heads(r), heads(k), heads(v), heads(w),
+                                 p["u"].float().view(h, hd), wkv_state),
+                          (bh, bh, bh, bh, ("state",), bh), (bh, bh))
+    y = merge_heads(y.permute(0, 2, 1, 3))
     y = rms_norm(y.to(x.dtype), p["ln_scale"], cfg.norm_eps)
     y = y * F.silu(g)
-    return y @ p["w_o"], new_shift, wkv.view(b, h, hd, hd)
+    return shard(y @ p["w_o"], "batch", "seq", "embed"), new_shift, wkv
 
 
 def channel_mix_forward(p, x, cfg: ModelConfig, shift_state):
@@ -98,7 +108,7 @@ def channel_mix_forward(p, x, cfg: ModelConfig, shift_state):
     xr = x + (prev - x) * p["mu_r"]
     k = torch.relu(xk @ p["w_k"]).square()
     r = torch.sigmoid(xr @ p["w_r"])
-    return r * (k @ p["w_v"]), new_shift
+    return shard(r * (k @ p["w_v"]), "batch", "seq", "embed"), new_shift
 
 
 def init_rwkv_state(cfg: ModelConfig, batch: int, device=None):

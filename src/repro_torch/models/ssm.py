@@ -29,6 +29,8 @@ import torch.nn.functional as F
 from repro_torch.kernels.linear_scan.ops import linear_scan
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import init_dense
+from repro_torch.models.sharding import (local_blocks, merge_heads, shard,
+                                         split_heads)
 
 
 def init_ssm(gen, cfg: ModelConfig, dtype, device=None):
@@ -51,10 +53,10 @@ def _proj(p, x, cfg: ModelConfig):
     the decay a [B, T, H] in (0, 1), float32."""
     b, sq, _ = x.shape
     h, pdim, s = cfg.ssm_heads, cfg.head_dim, cfg.ssm_state
-    xv = (x @ p["w_x"]).view(b, sq, h, pdim)
-    z = (x @ p["w_z"]).view(b, sq, h, pdim)
-    bb = (x @ p["w_b"]).view(b, sq, h, s)
-    cc = (x @ p["w_c"]).view(b, sq, h, s)
+    xv = split_heads(x @ p["w_x"], h, pdim)
+    z = split_heads(x @ p["w_z"], h, pdim)
+    bb = split_heads(x @ p["w_b"], h, s)
+    cc = split_heads(x @ p["w_c"], h, s)
     dt = (x @ p["w_dt"]).float()
     decay = torch.exp(-F.softplus(dt + p["a_log"]))
     return xv, z, bb, cc, decay
@@ -77,10 +79,15 @@ def ssm_forward(p, x, cfg: ModelConfig, state=None):
                             device=x.device)
     r, k, v = _heads(cc), _heads(bb), _heads(xv)
     a = decay.permute(0, 2, 1).reshape(b * h, sq, 1)
-    o, s_out = linear_scan(r, k, v, a.expand(b * h, sq, ns).contiguous(),
-                              None, state.reshape(b * h, ns, pdim).float()
-                              .contiguous())
+    # one shard's rows at a time under a placeholder mesh
+    rows = ("batch",)
+    o, s_out = local_blocks(
+        lambda r, k, v, a, s0: linear_scan(r, k, v, a, None, s0),
+        (r, k, v, a.expand(b * h, sq, ns).contiguous(),
+         state.reshape(b * h, ns, pdim).float().contiguous()),
+        (rows,) * 5, (rows, rows))
     y = a * o + (r * k).sum(-1, keepdim=True) * v            # C_t S_t
     y = y.view(b, h, sq, pdim).permute(0, 2, 1, 3)
-    y = (y * F.silu(z.float())).reshape(b, sq, h * pdim)
-    return y.to(x.dtype) @ p["w_out"], s_out.view(b, h, ns, pdim)
+    y = merge_heads(y * F.silu(z.float()))
+    return (shard(y.to(x.dtype) @ p["w_out"], "batch", "seq", "embed"),
+            s_out.view(b, h, ns, pdim))

@@ -47,6 +47,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (embed, init_dense, rms_norm, swiglu,
                                        unembed)
+from repro_torch.models.sharding import shard, sharded_logprob
 
 BIG_WINDOW = 1 << 30
 KINDS = ("dense", "moe", "rwkv", "hybrid")
@@ -129,6 +130,7 @@ def block_forward(p, x, positions, cfg: ModelConfig, *, window=None,
         aux = dropped.to(torch.float32)
     else:
         ffn_out = swiglu(h, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"])
+        ffn_out = shard(ffn_out, "batch", "seq", "embed")
     return x + ffn_out, cache, state, aux
 
 
@@ -208,6 +210,7 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, caches=None,
         x = embed(inputs, params["embedding"])
     else:
         x = inputs.to(getattr(torch, cfg.dtype))
+    x = shard(x, "batch", "seq", "embed")
     windows = layer_windows(cfg)
     zero_state = None
     if cfg.kind == "rwkv" and states is None:
@@ -239,7 +242,7 @@ def forward(params, cfg: ModelConfig, inputs, positions, *, caches=None,
             _state_put(states, i, lanes, new_state)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(x, params.get("unembed", params["embedding"]))
-    return logits, caches, states, aux
+    return shard(logits, "batch", "seq", "vocab"), caches, states, aux
 
 
 def loss_fn(params, cfg: ModelConfig, inputs, labels, mask, positions):
@@ -247,7 +250,6 @@ def loss_fn(params, cfg: ModelConfig, inputs, labels, mask, positions):
     1)`` with ``ll`` the label's float32 log-softmax over the padded vocab.
     -> (loss, aux), aux the MoE tokens dropped (float32)."""
     logits, _, _, aux = forward(params, cfg, inputs, positions)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = logp.gather(-1, labels.long()[..., None])[..., 0]
+    ll = sharded_logprob(logits.float(), labels.long()[..., None])[..., 0]
     n = torch.clamp(mask.sum(), min=1.0)
     return -(ll * mask).sum() / n, aux

@@ -45,6 +45,7 @@ CPU = "cpu"
     ("tweets", dict(n_ticks=2, tick=20, words_per_tweet=4, vocab=400,
                     k_virt=64, n_sources=3)),
     ("scalejoin", dict(n_ticks=3, tick=20, k_virt=1)),
+    ("nyse", dict(n_ticks=6, tick=24, n_companies=7, k_virt=8)),
 ])
 def test_datagen_streams_are_field_for_field_equal(gen, kw):
     jb = list(getattr(jdg, gen)(np.random.default_rng(5), **kw))

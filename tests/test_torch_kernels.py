@@ -327,9 +327,18 @@ def test_registry_sends_cpu_tensors_to_the_plain_version():
 
 
 def test_registry_refuses_other_devices():
-    t = torch.zeros(4, dtype=torch.int32, device="meta")
+    """A device that is neither the CPU, CUDA nor meta raises.  Meta
+    tensors (the dry-run's trace) run the plain version and launch
+    nothing."""
+    import types
+    other = types.SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(ValueError):
-        scalegate_merge_op(t, t, t.bool(), n_sources=1)
+        scalegate_merge_op(other, other, other, n_sources=1)
+    t = torch.zeros(4, dtype=torch.int32, device="meta")
+    before = scalegate_merge_op.launches
+    out = scalegate_merge_op(t, t, t.bool(), n_sources=1)
+    assert all(o.device.type == "meta" for o in out)
+    assert scalegate_merge_op.launches == before
 
 
 # ------------------------------------------------------- the first build --

@@ -1,7 +1,8 @@
 """The port's models against the reference on the CPU: reduced qwen3-14b
 (dense GQA, qk-norm), rwkv6-7b (the linear-scan recurrence), gemma3-4b
 (sliding windows; 6 layers so that the 6th is global), deepseek-moe-16b
-and qwen3-moe-30b-a3b (MoE, one-shard ``vsn`` dispatch; shared experts in
+and qwen3-moe-30b-a3b (MoE; the ``vsn`` dispatch on one expert shard
+and, against the reference's shard body, on 2 and 4; shared experts in
 deepseek) and hymba-1.5b (hybrid: attention and SSM heads in parallel,
 the SSM's recurrence through the linear-scan kernel), with the
 reference's own parameters carried across by ``convert.from_reference``.
@@ -311,21 +312,6 @@ def test_init_params_on_the_device_has_the_references_shapes():
         assert abs(float(a["embedding"].float().std()) / 0.02 - 1) < 0.1
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b"])
-def test_moe_and_hybrid_are_not_ported_yet(arch):
-    """What is left: the MoE's ``vsn`` dispatch over more than one expert
-    shard (it needs the mesh).  The hybrid kind is ported: its case went
-    with the refusal, and hymba-1.5b is one of ``ARCHS`` and of
-    ``tests/test_torch_ssm.py``."""
-    _, pcfg = _configs(arch)
-    p = PMOE.init_moe(torch.Generator().manual_seed(0), pcfg,
-                      torch.float32, "cpu")
-    x = torch.zeros(1, 2, pcfg.d_model)
-    assert PMOE.moe_forward(p, x, pcfg)[0].shape == x.shape
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PMOE.moe_forward(p, x, pcfg, n_shards=2)
-
-
 # ------------------------------------------------------------------ MoE --
 MOE_ARCHS = ["deepseek-moe-16b", "qwen3-moe-30b-a3b"]
 
@@ -358,6 +344,76 @@ def test_moe_forward_matches_reference(arch, dispatch, cf):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
     assert int(gd) == int(wd)
     assert (int(wd) > 0) == (cf is None)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_vsn_moe_over_expert_shards_matches_reference(arch, n, dtype):
+    """The ``vsn`` dispatch over n expert shards against the reference's
+    ``_vsn_body`` under ``jax.vmap(..., axis_name="model")`` (its
+    ``psum``s over n shards on one CPU device), 32 tokens at the
+    configs' capacity factor, ``dropped`` equal.  Float32 weights: equal
+    bit for bit (the bfloat16 partials added in shard order, each sum
+    rounded, as XLA adds the reference's bfloat16 ``psum``; a float32 sum
+    rounded once differs).  bfloat16 weights: within ``BF16_ATOL`` (the
+    expert products round differently on the two sides, as in the model
+    tests; measured up to 1.2e-2).  The same through ``moe_forward``
+    under a host mesh of n model shards (the shared experts added); and
+    n shards differ from one."""
+    RMOE, cfg, p, pcfg, pp = _moe_pair(arch, "vsn", None)
+    jdt = getattr(jnp, dtype)
+    p = {k: (v if k == "router" else v.astype(jdt)) for k, v in p.items()}
+    pp = {k: (v if k == "router" else v.to(getattr(torch, dtype)))
+          for k, v in pp.items()}
+    x = np.random.default_rng(0).normal(size=(2, 16, cfg.d_model))
+    x = jnp.asarray(x.astype(np.float32)).astype(jdt)
+    tx = torch.from_numpy(np.asarray(x.astype(jnp.float32))).to(
+        getattr(torch, dtype))
+    e = cfg.moe.n_experts
+    split = lambda w: w.reshape((n, e // n) + w.shape[1:])
+    body = jax.vmap(functools.partial(RMOE._vsn_body, cfg=cfg, axis="model",
+                                      n_shards=n),
+                    in_axes=(None, None, 0, 0, 0), axis_name="model")
+    want, wdrop = body(x.reshape(-1, cfg.d_model), p["router"],
+                       split(p["wg"]), split(p["wu"]), split(p["wd"]))
+    got, gdrop = PMOE._vsn_moe(pp, tx.reshape(1, -1, cfg.d_model), pcfg, n)
+    want = np.asarray(want[0].astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_array_equal(got[0].float().numpy(), want)
+    else:
+        np.testing.assert_allclose(got[0].float().numpy(), want,
+                                   atol=BF16_ATOL)
+    assert int(gdrop.sum()) == int(wdrop[0])
+    one, _ = PMOE._vsn_moe(pp, tx.reshape(1, -1, cfg.d_model), pcfg, 1)
+    assert not torch.equal(one, got)
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import sharding
+    with sharding.use_rules(make_host_mesh(1, n, "cpu")):
+        y, dropped = PMOE.moe_forward(pp, tx, pcfg)
+    shared = sum(k.startswith("shared") for k in pp)
+    ref = got[0].to(tx.dtype).reshape(tx.shape)
+    if shared:
+        ref = ref.reshape(-1, cfg.d_model) + PMOE.swiglu(
+            tx.reshape(-1, cfg.d_model), pp["shared_wg"], pp["shared_wu"],
+            pp["shared_wd"])
+    assert torch.equal(y, ref.reshape(tx.shape))
+    assert int(dropped) == int(wdrop[0])
+
+
+def test_vsn_expert_slices_move_to_another_device_once():
+    """A shard on another device than its weights gets a copy of its
+    expert slice made once and kept with the weight (``_on``); on the
+    weight's own device, a view."""
+    w = torch.randn(8, 4, 3)
+    assert PMOE._on(w, w.device, 2, 2).data_ptr() == w[2].data_ptr()
+    meta = torch.device("meta")
+    a = PMOE._on(w, meta, 4, 2)
+    assert a.device == meta and a.shape == (2, 4, 3)
+    assert PMOE._on(w, meta, 4, 2) is a
+    assert PMOE._on(w, meta, 0, 2) is not a
+    assert PMOE._on(w, meta) is PMOE._on(w, meta)
 
 
 def test_moe_route_breaks_ties_toward_the_lower_expert():

@@ -273,7 +273,9 @@ def test_compress_round_trip_matches_reference():
     zero = PC.init_residual(tg)
     assert all(not z.any() and z.dtype == torch.float32
                for z in zero.values())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+    # a named axis reduces over the installed mesh's replicas
+    # (tests/test_torch_sharding.py); without a mesh there is none
+    with pytest.raises(ValueError, match="no installed mesh"):
         PC.compressed_psum(tg, tr, axis_name="data")
 
 
