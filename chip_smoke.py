@@ -25,7 +25,11 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
                  ``acc`` left unchanged, and a sweep over the cluster size;
                  window_join at the Q3 and bench shapes, n_attrs 12,
                  524,289 key rows and ``join_edge_cases``;
-                 flash_attention at 65,544 (lane, KV head) pairs; the
+                 flash_attention at 65,544 (lane, KV head) pairs and
+                 at the shapes phases 20-22 serve (``served_attention``:
+                 gemma3-12b's local and global decode at depth 1300 and
+                 its 1280-token windowed prefill, stablelm-12b's D 160,
+                 qwen3-moe-30b-a3b's n_rep 8), each beside SDPA; the
                  two model kernels at their decode and prefill shapes,
                  hymba-1.5b's among them (linear_scan also at T 1024,
                  strong and zero decays, the chunk's edges, and a sweep
@@ -121,7 +125,7 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
                  --resume``, each a process of its own on the card, and
                  the same ``live`` run on the CPU with an equal output
                  count; ``live --mesh 4`` with its oracle and the mesh
-                 drill (``--drills mesh --mesh 4``).  Phase 20's two
+                 drill (``--drills mesh --mesh 4``).  Phase 23's two
                  training processes run beside these.
 15-18. ``serve_qwen3_14b``, ``serve_rwkv6_7b``, ``serve_deepseek_moe_16b``
                  (the MoE's one-shard ``vsn`` dispatch, each decode lane
@@ -143,7 +147,8 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
                  mid-decode VSN switch moving 0 bytes and an SN switch
                  moving more, both token-invisible, and a float32 copy
                  cut to 4 layers token-identical to ``reference_decode``
-                 (see ``serve_full_width``).
+                 (see ``serve_full_width``); 12 arrival ticks, 64 rounds
+                 replayed eagerly (``SERVE_ARGS``).
 19. ``moe_mesh`` — right after ``serve_deepseek_moe_16b``, over the
                  weights it drew: deepseek-moe-16b at full width and
                  depth in bf16, 8 prompts of 128 tokens and 16 decode
@@ -162,7 +167,22 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
                  ms p50, device operations a step, peak GB; then the
                  dry-run cell ``deepseek_moe_16b decode_32k`` on the
                  single-pod placeholder mesh (see ``moe_mesh``).
-20. ``train_hymba_1_5b`` — ``repro_torch.launch.train`` on hymba-1.5b at
+20-22. ``serve_gemma3_12b``, ``serve_stablelm_12b``,
+                 ``serve_qwen3_moe_30b_a3b`` — phases 15-18's path and
+                 checks (``serve_full_width``) on the remaining token
+                 models at published width and depth (``SERVE_ARGS``):
+                 gemma3-12b (48 layers, five local of window 1024 to each
+                 global, D 256) with prompts of 1280 tokens in slots of
+                 2048, so every decode step and the prefill rows past
+                 1024 mask keys by the window, its float32 copy cut to 6
+                 layers so that the global sixth is in it, and the
+                 highest decode position reported; stablelm-12b (D 160);
+                 qwen3-moe-30b-a3b (128 experts top-8, 61 GB of bfloat16
+                 weights on the card; ``peak_gb`` and each part's memory
+                 reported, no decode token dropped).  Like phases 15-18,
+                 each takes 12 arrival ticks and replays 64 rounds
+                 eagerly; 8 new tokens a request (``SERVE_ARGS``).
+23. ``train_hymba_1_5b`` — ``repro_torch.launch.train`` on hymba-1.5b at
                  full width and depth in bf16 (batch 8 of 128 tokens, 8
                  microbatches), 10 steps then a resume to 20, each a
                  process of its own (run beside phase 14): finite printed losses, the last
@@ -176,7 +196,7 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
                  must fail; timed and profiled steps (see
                  ``train_hymba_1_5b``).
 
-Phases 3 to 20 are the main path: each zeroes the launch counts right
+Phases 3 to 23 are the main path: each zeroes the launch counts right
 before its card run and reads them right after (``launchers`` and
 ``train_hymba_1_5b`` read each of their processes' counts), and the
 ``{"kernels": [...]}`` line reports their sum with phase 2's times.
@@ -209,6 +229,13 @@ why the ``launchers`` phase runs the drills it runs.
 
 runs the ``moe_mesh`` phase alone (its weights drawn from seed 0), the
 shards round-robin over the visible cards: one a card on four.
+
+    python3 chip_smoke.py --serve ARCH
+
+runs one serve phase alone at the default run's arguments for ``ARCH``
+(``SERVE_ALONE``): any served model, or gemma3-4b (gemma3-12b's path at
+smaller widths, which the default run leaves out), the kernels built
+first.
 """
 
 import dataclasses
@@ -1144,32 +1171,51 @@ def check_flash_attention(dev):
                 q_offset=depth)
         del q, kc, vc
 
-    def timed(b, sq, at, hq=40, hkv=8, d=128):
+    def timed(b, sq, at, hq=40, hkv=8, d=128, seq=1024, window=None,
+              check=None):
         """bf16 kernel, plain version, SDPA and bound for ``b`` lanes of
         ``sq`` queries (qwen3-14b's 40 heads over 8 by default, D 128) at
-        depth ``at`` of a 1024-slot cache, q_offset per lane as the model
-        passes it; SDPA gets the visible keys with the KV heads repeated
-        (outside the timing) and is_causal for the prefill."""
+        depth ``at`` of a ``seq``-slot cache, q_offset per lane as the
+        model passes it, under ``window`` (a local layer) or none; SDPA
+        gets the keys up to the last query with the KV heads repeated
+        (outside the timing), is_causal for a prefill of a global layer
+        and a boolean mask of the window for a local one.  The bound
+        counts the keys the window leaves visible.  ``check`` names a
+        case that also holds the kernel against its plain version on
+        these inputs."""
         rep = hq // hkv
         q = rnd(b, sq, hq, d, dtype=bf16).transpose(1, 2)
-        kc, vc = (cache(b, 1024, hkv, d, bf16) for _ in range(2))
+        kc, vc = (cache(b, seq, hkv, d, bf16) for _ in range(2))
         off = ints(np.full(b, at))
-        run = lambda f: f(q, kc, vc, n_rep=rep, q_offset=off)
+        kw = dict(n_rep=rep, q_offset=off, window=window)
+        run = lambda f: f(q, kc, vc, **kw)
+        if check:
+            compare(check, q, kc, vc, **kw)
         n_vis = at + sq
         ke, ve = (x[:, :, :n_vis].repeat_interleave(rep, dim=1).contiguous()
                   for x in (kc, vc))
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        visible = b * hq * (sq * at + sq * (sq + 1) // 2)  # (query, key)
+        q_pos = at + np.arange(sq)
+        w = window or (1 << 30)
+        pairs = int(np.minimum(q_pos + 1, w).sum())      # a (lane, head)
+        keys = n_vis - max(at - w + 1, 0)                # read at least once
         ms, by = bound(2 * (2 * b * hq * sq * d)            # q in, out
-                       + 2 * (2 * b * hkv * n_vis * d)      # visible K, V
-                       + 4 * b, bf16_ops=4 * visible * d)
+                       + 2 * (2 * b * hkv * keys * d)       # visible K, V
+                       + 4 * b, bf16_ops=4 * b * hq * pairs * d)
+        if window is None:
+            library = lambda: sdpa(q, ke, ve, is_causal=at == 0)
+        else:
+            k_pos = torch.arange(n_vis, device=dev)
+            qp = torch.as_tensor(q_pos, device=dev)[:, None]
+            mask = (k_pos <= qp) & (qp - k_pos < window)
+            library = lambda: sdpa(q, ke, ve, attn_mask=mask)
         return dict(
             shape=f"q [{b}, {hq}, {sq}, {d}] bf16 at depth {at} of a "
-                  f"[{b}, 1024, {hkv}, {d}] cache, n_rep {rep}",
+                  f"[{b}, {seq}, {hkv}, {d}] cache, n_rep {rep}"
+                  + ("" if window is None else f", window {window}"),
             **timings(lambda: run(flash_attention_op),
-                      lambda: run(flash_attention_plain),
-                      lambda: sdpa(q, ke, ve, is_causal=at == 0)),
-            bound_ms=ms, bound_by=by)
+                      lambda: run(flash_attention_plain), library),
+            bound_ms=ms, bound_by=by, visible_keys=keys)
 
     def split_sweep():
         """Decode device ms at the serve shape (8 lanes of qwen3-14b, 1024
@@ -1197,6 +1243,7 @@ def check_flash_attention(dev):
     # the serve phase's decode round (8 lanes at depth ~144) and its
     # batch-1 prefill of a 128-token prompt
     sweep = split_sweep()
+    served = served_attention(timed)
     return dict(name="flash_attention", cases=len(errs),
                 max_abs_err=max(v for k, v in errs.items() if "f32" in k),
                 max_abs_err_bf16=max(v for k, v in errs.items()
@@ -1208,7 +1255,32 @@ def check_flash_attention(dev):
                               prefill=timed(1, 128, 0, 16, 16)),
                 hymba=dict(decode=timed(8, 1, 144, 25, 5, 64),
                            prefill=timed(1, 128, 0, 25, 5, 64)),
+                served=served,
                 decode_split_ms=sweep)
+
+
+def served_attention(timed):
+    """The serve phases' attention shapes past the first four models (see
+    ``SERVE_ARGS``), each held against the plain version and timed by
+    ``check_flash_attention``'s ``timed``: gemma3-12b's decode round (8
+    lanes, 16 query heads over 8 of 256, a 2048-slot pool at depth 1300)
+    in a local layer (window 1024) and a global one, and its batch-1
+    prefill of 1280 tokens in a local layer; stablelm-12b's decode round
+    (32 over 8 of 160); qwen3-moe-30b-a3b's (32 over 4 of 128, n_rep
+    8)."""
+    gemma = dict(hq=16, hkv=8, d=256, seq=2048)
+    return dict(
+        gemma3_12b=dict(
+            decode_local=timed(8, 1, 1300, window=1024, **gemma,
+                               check="served_gemma3_decode_local_bf16"),
+            decode_global=timed(8, 1, 1300, **gemma,
+                                check="served_gemma3_decode_global_bf16"),
+            prefill_local=timed(1, 1280, 0, window=1024, **gemma,
+                                check="served_gemma3_prefill_local_bf16")),
+        stablelm_12b=dict(decode=timed(8, 1, 144, 32, 8, 160,
+                                       check="served_stablelm_decode_bf16")),
+        qwen3_moe_30b_a3b=dict(decode=timed(
+            8, 1, 144, 32, 4, 128, check="served_qwen3_moe_decode_bf16")))
 
 
 def scan_inputs(dev, gen, bh, t, dk, dv, u_rows=None, s0=False, w=None):
@@ -3439,8 +3511,9 @@ def launchers(dev, drills="straggler,live,ingest,serving,crash,recovery,"
 
 
 # ---------------------------------------------------------------------------
-# phases 15-18: the elastic serving tier at full width (qwen3-14b,
-# rwkv6-7b, deepseek-moe-16b, hymba-1.5b)
+# phases 15-18 and 20-22: the elastic serving tier at full width
+# (qwen3-14b, rwkv6-7b, deepseek-moe-16b, hymba-1.5b; gemma3-12b,
+# stablelm-12b, qwen3-moe-30b-a3b)
 # ---------------------------------------------------------------------------
 
 SERVE_KERNELS = {"dense": ("flash_attention",), "moe": ("flash_attention",),
@@ -3448,6 +3521,29 @@ SERVE_KERNELS = {"dense": ("flash_attention",), "moe": ("flash_attention",),
                  "hybrid": ("flash_attention", "linear_scan")}
 # a substring of the CUDA kernels' symbols, for the profile
 KERNEL_SYMBOL = {"flash_attention": "flash_", "linear_scan": "linear_scan_"}
+
+
+# The default run's serve phases in order, each with its arguments past
+# ``serve_full_width``'s defaults.  gemma3-12b's prompts of 1280 tokens in
+# slots of 2048 put every decode step past its local layers' window of
+# 1024, and its float32 copy of 6 layers holds a global layer (the sixth).
+# The time limit cuts traffic, nothing else: every phase takes 12 arrival
+# ticks and replays its first 64 rounds eagerly (the first four served
+# 24 and 160 before the last three came), and the last three 8 new
+# tokens a request, not 32: at 32 their batch-1 checks took 59, 25 and
+# 115 s, and with 16 the whole run took 1,104 s of phases (PERF.md).
+# ``--serve ARCH`` runs one phase alone: any of these, or gemma3-4b, which
+# takes gemma3-12b's path at smaller widths (``SERVE_ALONE``).
+SERVE_CUT = dict(ticks=12, eager_rounds=64)
+NEW_CUT = dict(SERVE_CUT, max_new=8)
+GEMMA3_SERVE = dict(NEW_CUT, prompt_len=1280, max_seq=2048, check_layers=6)
+SERVE_ARGS = {
+    "qwen3-14b": SERVE_CUT, "rwkv6-7b": SERVE_CUT,
+    "deepseek-moe-16b": SERVE_CUT, "hymba-1.5b": SERVE_CUT,
+    "gemma3-12b": GEMMA3_SERVE, "stablelm-12b": NEW_CUT,
+    "qwen3-moe-30b-a3b": NEW_CUT,
+}
+SERVE_ALONE = dict(SERVE_ARGS, **{"gemma3-4b": GEMMA3_SERVE})
 
 
 # The float32 MoE copy's batch-1 allowance (see ``serve_full_width``): a
@@ -3472,6 +3568,7 @@ def record_buckets(eng) -> dict:
     return rows
 
 
+@torch.inference_mode()
 def padded_decode(cfg, params, prompt, max_new, max_seq, rows=None):
     """The port's ``reference_decode`` (greedy, fresh caches, one bulk
     prefill, then token by token), each token with its top-2 logit gap.
@@ -3601,8 +3698,10 @@ def _round_profile(eng, prompts, kernels):
     eng.tick()                                     # admit all + one round
     if eng.device.type == "cuda":
         torch.cuda.synchronize(eng.device)
+    # the CUDA activity alone: its runtime calls hold the host syncs, and
+    # the CPU operators' events of an eager round took seconds to parse
     profile = device_profile(lambda i: eng.tick(), 4,
-                             kernel=KERNEL_SYMBOL[kernels[0]])
+                             kernel=KERNEL_SYMBOL[kernels[0]], cpu_ops=False)
     while eng.running:
         eng.tick()
     return profile
@@ -3657,6 +3756,7 @@ def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
     from repro_torch.models import transformer
     from repro_torch.serving import (RequestSource, ServingConfig,
                                      ServingEngine, reference_decode)
+    from repro_torch.tree import tree_leaves
 
     from repro_torch.configs import reduced as reduce_cfg
     dev = torch.device(dev)
@@ -3667,9 +3767,26 @@ def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
         mcfg = reduce_cfg(mcfg)
     kernels = SERVE_KERNELS[mcfg.kind]
     prev_obs = _obs.get()
+    # each part's seconds, and on the card the memory it holds at its end
+    # and its peak (GB), the peak reset at each part's start
+    parts, memory = {}, {}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        sync()
+        now = time.perf_counter()
+        parts[name] = now - clock[0]
+        clock[0] = now
+        if cuda:
+            memory[name] = dict(
+                held=torch.cuda.memory_allocated(dev) / 1e9,
+                peak=torch.cuda.max_memory_allocated(dev) / 1e9)
+            torch.cuda.reset_peak_memory_stats(dev)
     if cuda:
+        # the allocator's statistics exist once CUDA is initialised: a
+        # process that runs this phase first (--serve) has not yet
+        torch.cuda.init()
         torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
     cfg = RuntimeConfig(
         serving=ServingConfig(arch=arch, reduced=reduced, n_slots=n_slots,
                               max_seq=max_seq, n_instances=4, seed=0),
@@ -3689,15 +3806,19 @@ def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
         vocab=mcfg.vocab, seed=1, n_inputs=2, k_virt=n_slots, tick_ms=50,
         drain_ticks=ticks * lanes * max_new // n_slots + 16)
     rt = build_runtime(cfg, source)
-    sync()
-    init_s = time.perf_counter() - t0
     pipe, eng = rt.pipeline, rt.pipeline.engine
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in tree_leaves(eng.params)) / 1e9
+    lap("init")
     assert eng.graphs == cuda
-    # the rounds the requests reach the engine at, for the eager replay
+    # the rounds the requests reach the engine at, for the eager replay.
+    # The wrapper alone holds the bound method: ``del eng.submit`` below
+    # leaves no local that keeps the engine, its pool and the parameters
+    # alive through the float32 copy (one did: 61 GB of qwen3-moe's
+    # weights beside the copy's)
     schedule = []
-    submit = eng.submit
-    eng.submit = lambda r: (schedule.append((eng.steps, r.uid, r.prompt,
-                                             r.max_new)), submit(r))[1]
+    eng.submit = lambda r, submit=eng.submit: (schedule.append(
+        (eng.steps, r.uid, r.prompt, r.max_new)), submit(r))[1]
     buckets = record_buckets(eng)
 
     # the main path: the kernel counts cover exactly this run
@@ -3728,18 +3849,23 @@ def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
         assert ev["kv_bytes_moved"] == 0, ev
     graphs = _graph_summary(eng, kernels, mcfg.n_layers)
     assert (len(graphs) > 0) == cuda
+    # the highest position a decode step wrote: a request's last token is
+    # the argmax of the step fed its second-to-last
+    max_decode_position = max(len(r.prompt) + len(r.out) - 2
+                              for r in pipe.finished)
+    lap("main_path")
 
     # the eager engine on the same requests at the same rounds: the same
     # lanes in the same buckets, so the same tokens
     served = {r.uid: list(r.out) for r in pipe.finished}
-    t1 = time.perf_counter()
     eager = ServingEngine(mcfg, eng.params, n_slots=n_slots, max_seq=max_seq,
                           n_instances=4, device=dev, graphs=False)
     eager_out, eager_lat = _replay(eager, schedule, eager_rounds)
     assert eager_out and all(served[uid][:len(out)] == out
                              for uid, out in eager_out.items()), \
         "the eager engine's tokens differ from the graph engine's"
-    eager_s, eager_run = time.perf_counter() - t1, eager.decode_rounds
+    eager_run = eager.decode_rounds
+    lap("eager")
 
     # tokens against the straight-line batch-1 reference on the card: the
     # first token of every request (a batch-1 prefill on both sides, so
@@ -3747,24 +3873,27 @@ def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
     # batched decode rounds differently from batch 1 in bfloat16: a share).
     # A request that leaves batch-1 decode must equal padded_decode at the
     # buckets the engine ran it in: the same function at the same shapes
-    t1 = time.perf_counter()
+    whole = {r.uid: reference_decode(mcfg, eng.params, r.prompt, max_new,
+                                     max_seq)
+             for r in pipe.finished[:n_slots]}
     first_same = sum(
-        reference_decode(mcfg, eng.params, r.prompt, 1, max_seq)[0]
-        == r.out[0] for r in pipe.finished)
+        (whole[r.uid] if r.uid in whole else reference_decode(
+            mcfg, eng.params, r.prompt, 1, max_seq))[0] == r.out[0]
+        for r in pipe.finished)
     assert first_same == len(pipe.finished), (first_same, len(pipe.finished))
     same, padded = 0, []
     for r in pipe.finished[:n_slots]:
-        ref = reference_decode(mcfg, eng.params, r.prompt, max_new, max_seq)
-        assert ref[0] == r.out[0] and len(ref) == len(r.out) == max_new
+        ref = whole[r.uid]
+        assert len(ref) == len(r.out) == max_new
         same += sum(a == b for a, b in zip(ref, r.out))
         if ref != r.out:
             assert len(buckets[r.uid]) == max_new - 1, buckets[r.uid]
             pad, _ = padded_decode(mcfg, eng.params, r.prompt, max_new,
                                    max_seq, rows=buckets[r.uid])
             padded.append(sum(a == b for a, b in zip(pad, r.out)))
-    ref_s = time.perf_counter() - t1
     assert all(n == max_new for n in padded), \
         f"the engine differs from padded_decode at its buckets: {padded}"
+    lap("reference")
 
     # a manual reconfiguration mid-decode: token-invisible, 0 bytes (VSN),
     # more than 0 bytes (SN)
@@ -3775,28 +3904,32 @@ def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
     sn, sn_moved = _engine_tokens(eng, prompts, 16, at=4, mode="sn")
     assert vsn == base and vsn_moved == 0, vsn_moved
     assert sn == base and sn_moved > 0, sn_moved
+    lap("switches")
 
     # where a decode round's time goes: 8 lanes, 4 rounds under the
     # profiler, in the graph and in the eager engine
     profile = _round_profile(eng, prompts, kernels)
     if eager.running or eager.waiting:              # a cut replay
+        eager = None                                # its pool freed first
         eager = ServingEngine(mcfg, eng.params, n_slots=n_slots,
                               max_seq=max_seq, device=dev, graphs=False)
     eager_profile = _round_profile(eager, prompts, kernels)
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
+    lap("profiles")
     lat = rep.stage_latency_ms
     out = dict(
         phase=f"serve_{canon(arch)}", arch=arch, layers=mcfg.n_layers,
         d_model=mcfg.d_model, params_billion=mcfg.param_count() / 1e9,
         dtype=mcfg.dtype, slots=n_slots, max_seq=max_seq,
-        prompt_len=prompt_len, max_new=max_new, init_s=init_s,
+        prompt_len=prompt_len, max_new=max_new, ticks=ticks,
+        window_pattern=mcfg.window_pattern,
+        max_decode_position=max_decode_position, init_s=parts["init"],
         requests=len(pipe.finished), tokens=tokens,
         prefills=prefills, decode_rounds=rounds,
         kernel_calls={k: mcfg.n_layers * forwards for k in kernels},
         first_tokens_equal_reference=first_same,
         token_share_equal_reference=same / (n_slots * max_new),
         requests_off_batch1=len(padded),
-        reference_s=ref_s,
+        reference_s=parts["reference"],
         runtime=dict(ticks=rep.ticks, wall_s=rep.wall_s,
                      tokens_per_s=tokens / rep.wall_s,
                      p50_ms=rep.p50_ms, p99_ms=rep.p99_ms,
@@ -3808,7 +3941,7 @@ def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
         decode_round_ms=lat.get("serve.decode"),
         prefill_ms=lat.get("serve.prefill"),
         graphs=graphs,
-        eager=dict(rounds=eager_run, seconds=eager_s,
+        eager=dict(rounds=eager_run, seconds=parts["eager"],
                    requests_token_identical_to_graph=len(eager_out),
                    requests_complete=sum(out == served[uid] for uid, out
                                          in eager_out.items()),
@@ -3817,7 +3950,7 @@ def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
                    profile=eager_profile),
         manual_reconfig=dict(vsn_bytes=vsn_moved, sn_bytes=sn_moved,
                              tokens_unchanged=True),
-        profile=profile, peak_gb=peak_gb, launches=launches)
+        profile=profile, weights_gb=weights_gb, launches=launches)
     if mcfg.kind == "moe":
         # (token, expert) pairs past an expert's capacity over every
         # forward the engine ran (the runtime's and the checks'), and the
@@ -3882,6 +4015,13 @@ def serve_full_width(dev, arch, *, n_slots=8, max_seq=1024, prompt_len=128,
                                graphs=len(eng.graph_stats()))
     del eng, params
     _free_card(dev)
+    lap("float32_copy")
+    out["seconds_by_part"] = parts
+    if cuda:
+        out["memory_gb"] = memory
+        out["peak_gb"] = max(m["peak"] for m in memory.values())
+    else:
+        out["peak_gb"] = None
     return out
 
 
@@ -4195,6 +4335,29 @@ def moe_mesh(dev, params=None, mcfg=None, *, batch=8, prompt_len=128,
     return out
 
 
+def serve_alone(arch: str) -> int:
+    """``--serve ARCH``: one serve phase alone at the default run's
+    arguments for ``arch`` (``SERVE_ALONE``), the kernels built first."""
+    if arch not in SERVE_ALONE:
+        print(f"chip_smoke: --serve takes one of {sorted(SERVE_ALONE)}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+    import repro_torch.kernels.flash_attention.ops      # noqa: F401
+    import repro_torch.kernels.linear_scan.ops          # noqa: F401
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build()
+    build.library()
+    t0 = time.perf_counter()
+    out = serve_full_width(torch.device("cuda", 0), arch,
+                           **SERVE_ALONE[arch])
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return 0
+
+
 def moe_mesh_alone() -> int:
     """``--moe-mesh``: the ``moe_mesh`` phase alone, the kernels built
     first; its shards go round-robin over the visible cards (one a card on
@@ -4215,7 +4378,7 @@ def moe_mesh_alone() -> int:
 
 
 # ---------------------------------------------------------------------------
-# phase 20: training hymba-1.5b at full width and depth
+# phase 23: training hymba-1.5b at full width and depth
 # ---------------------------------------------------------------------------
 
 TRAIN_ARGS = ("--arch", "hymba-1.5b", "--batch", "8", "--seq", "128")
@@ -4622,6 +4785,9 @@ def main(argv) -> int:
     if argv[:1] == ["--moe-mesh"]:
         print(card_line(), flush=True)
         return moe_mesh_alone()
+    if argv[:1] == ["--serve"]:
+        print(card_line(), flush=True)
+        return serve_alone(argv[1] if len(argv) == 2 else "")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build, dispatch
     import repro_torch.kernels.scalegate_merge.ops      # noqa: F401
@@ -4670,7 +4836,7 @@ def main(argv) -> int:
         phase(run)
     with tempfile.TemporaryDirectory() as d, \
             concurrent.futures.ThreadPoolExecutor(1) as pool:
-        # phase 20's two training processes run beside the launchers
+        # phase 23's two training processes run beside the launchers
         # phase's, which are host-bound and hold little of the card's
         # memory; the serving phases start once both are done
         ck = str(pathlib.Path(d) / "ck")
@@ -4678,11 +4844,10 @@ def main(argv) -> int:
         phase(launchers)
         runs = trained.result()
         kept = {}
-        for arch in ("qwen3-14b", "rwkv6-7b", "deepseek-moe-16b",
-                     "hymba-1.5b"):
+        for arch, kw in SERVE_ARGS.items():
             moe = arch == "deepseek-moe-16b"
             phase(functools.partial(serve_full_width, arch=arch,
-                                    keep=kept if moe else None))
+                                    keep=kept if moe else None, **kw))
             if moe:
                 # the model mesh over the weights the serve phase drew
                 phase(lambda dev: moe_mesh(dev, kept.pop("params"),
@@ -4706,6 +4871,7 @@ def main(argv) -> int:
                              "max_active_clusters", "prefill",
                              "prefill_t1024", "chunk_sweep_ms",
                              "decode_split_ms", "deepseek", "hymba",
+                             "served",
                              "rwkv6", "limit_used", "bitwise_repeat",
                              "push_cases",
                              "max_abs_err_bf16", "kernels_per_call",

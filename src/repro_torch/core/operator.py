@@ -85,6 +85,11 @@ class Outputs:
     count: torch.Tensor     # i32[] number of valid lanes
     overflow: torch.Tensor  # i32[] outputs dropped (buffer too small)
 
+    def as_batch(self, kmax: int = 1) -> T.TupleBatch:
+        """The buffer as a ``TupleBatch`` on its device (no keys)."""
+        return T.make_batch(self.tau, self.payload, valid=self.valid,
+                            kmax=kmax, device=self.tau.device)
+
 
 _SHARED = threading.local()
 
@@ -137,6 +142,20 @@ def _put(buf: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Table-1 default behaviours
 # ---------------------------------------------------------------------------
+
+def tuple_store_init(k: int, n_slots: int, ring: int, p: int, device=None):
+    """Default zeta: bounded per-(key, slot) tuple ring (Table 1 f_U
+    default), on ``device`` (default: the card)."""
+    dev = _device.resolve(device)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return {
+        "tau": torch.full((k, n_slots, ring), -1, **i32),
+        "payload": torch.zeros((k, n_slots, ring, p), dtype=torch.float32,
+                               device=dev),
+        "source": torch.zeros((k, n_slots, ring), **i32),
+        "count": torch.zeros((k, n_slots), **i32),
+    }
+
 
 def _set_at(a: torch.Tensor, rows, cols, v) -> torch.Tensor:
     new = a.clone()

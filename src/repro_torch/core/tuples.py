@@ -51,6 +51,10 @@ class TupleBatch:
     def device(self) -> torch.device:
         return self.tau.device
 
+    def num_valid(self) -> torch.Tensor:
+        """The valid lanes' count, an int32 scalar on the batch's device."""
+        return self.valid.sum(dtype=torch.int32)
+
     def to(self, device, non_blocking: bool = False) -> "TupleBatch":
         return TupleBatch(**{f: getattr(self, f).to(device,
                                                      non_blocking=non_blocking)

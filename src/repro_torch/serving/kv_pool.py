@@ -37,7 +37,10 @@ shape; every later one replays it.  All graphs share one memory pool.  A
 capture that fails raises ``GraphCaptureError``; there is no eager
 fallback.  ``graphs=False`` runs the same rounds eagerly, the card's
 comparison and the CPU's only engine.  One host read a call remains: the
-round's tokens, or the prefill's first token.
+round's tokens, or the prefill's first token.  A tick, and
+``reference_decode``, run under ``torch.inference_mode``: no gradient is
+ever taken here, and the eager forwards skip autograd's bookkeeping on
+each of their thousands of operations.
 """
 
 from __future__ import annotations
@@ -197,13 +200,22 @@ class ServingEngine:
     ``graphs`` (default: True on the card, where the eager engine is
     ``graphs=False``; the CPU runs eagerly) captures each decode bucket
     and prompt length as a CUDA graph.  ``prefills`` and ``decode_rounds``
-    count the forwards run (each runs every layer once).  The reference's
-    ``greedy`` flag, which it never reads, and its ``chunk`` have no
-    counterpart."""
+    count the forwards run (each runs every layer once).  A model of
+    ``frontend="embedding_stub"`` (chameleon-34b, musicgen-large) takes
+    embeddings where a request carries token ids: the engine refuses it at
+    construction with a ``ValueError``, where the reference's fails at its
+    first prefill.  The reference's ``greedy`` flag, which it never
+    reads, and its ``chunk`` have no counterpart."""
 
     def __init__(self, cfg: ModelConfig, params, *, n_slots: int,
                  max_seq: int, n_instances: int = 1, device=None,
                  graphs: Optional[bool] = None):
+        if cfg.frontend != "token":
+            # a request is token ids; the reference's engine takes such a
+            # model too and fails at its first prefill
+            raise ValueError(f"{cfg.name} takes frontend={cfg.frontend!r} "
+                             f"embeddings, not token ids: the engine serves "
+                             f"token models only")
         self.cfg, self.params = cfg, params
         self.device = dev = _device.resolve(device)
         cuda = dev.type == "cuda"
@@ -359,6 +371,7 @@ class ServingEngine:
         self.requests_done += 1
         done.append(req)
 
+    @torch.inference_mode()
     def tick(self) -> List[Request]:
         """One decode round over all running requests, padded to its
         bucket; returns the finished requests."""
@@ -420,6 +433,7 @@ class ServingEngine:
         return load
 
 
+@torch.inference_mode()
 def reference_decode(cfg: ModelConfig, params, prompt, max_new: int,
                      max_seq: int) -> List[int]:
     """Straight-line batch-1 greedy decode: fresh caches, one bulk prefill,

@@ -428,3 +428,40 @@ def test_flatten_outputs_and_collect_sink_match_reference():
     assert psink.results() == jsink.results() and psink.results()
     assert psink.results(since_tick=1, before_tick=2) == \
         jsink.results(since_tick=1, before_tick=2)
+
+
+@pytest.mark.parametrize("k,n_slots,ring,p", [(4, 1, 3, 2), (5, 3, 1, 4)])
+def test_tuple_store_init_matches_reference(k, n_slots, ring, p):
+    """Table 1's default zeta: the same fields, shapes, dtypes and fill
+    values (tau -1, the rest 0) on the device it is asked for."""
+    from repro.core.operator import tuple_store_init as j_init
+    from repro_torch.core.operator import tuple_store_init as p_init
+    got = p_init(k, n_slots, ring, p, device=CPU)
+    assert all(t.device.type == "cpu" for t in got.values())
+    assert got["payload"].shape == (k, n_slots, ring, p)
+    assert_tree_equal(np_tree(j_init(k, n_slots, ring, p)), np_tree(got))
+
+
+def test_outputs_as_batch_and_num_valid_match_reference():
+    """A tick's output buffer as a batch (``Outputs.as_batch``, kmax 1 and
+    3) and its valid-lane count (``TupleBatch.num_valid``), both packages
+    on the same tick."""
+    jop, pop = _ops("count", 8, out_cap=16)
+    jop, pop = jop.resolved(), pop.resolved()
+    js, ps = jop.init_state(), pop.init_state(CPU)
+    resp = np.arange(8) % 3 != 1
+    counts = []
+    for b in _agg_stream(np.random.default_rng(5)):
+        js, jo = j_tick(jop, js, b, jnp.asarray(resp))
+        ps, po = p_tick(pop, ps, to_port(b), torch.from_numpy(resp))
+        for kmax in (1, 3):
+            jb, pb = jo.as_batch(kmax), po.as_batch(kmax)
+            assert isinstance(pb, PT.TupleBatch) and pb.device == po.tau.device
+            assert_tree_equal(np_tree(jb), np_tree(pb))
+            assert_tree_equal(np_tree(jb.num_valid()),
+                              np_tree(pb.num_valid()))
+        assert int(pb.num_valid()) == int(po.count)
+        assert_tree_equal(np_tree(b.num_valid()),
+                          np_tree(to_port(b).num_valid()))
+        counts.append(int(pb.num_valid()))
+    assert any(counts) and not all(c == counts[0] for c in counts)

@@ -7,7 +7,10 @@ weights; the request stream equals the reference's; and the whole stack
 through ``build_runtime`` equals ``run_sync`` and ``reference_decode``."""
 
 import dataclasses
+import gc
+import importlib.util
 import json
+import pathlib
 
 import numpy as np
 import pytest
@@ -151,17 +154,28 @@ def test_sn_moves_bytes_vsn_does_not(model):
     assert moved2 == 0 and eng2.pool.kv_bytes_moved == 0
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["deepseek-moe-16b",
-                                          "hymba-1.5b"])
-def test_engine_tokens_equal_the_reference_engine(arch):
+# the token models the engine serves, past the first four: gemma3's
+# local layers (window 8 reduced, crossed by these requests' positions),
+# stablelm's untied dense stack, qwen3-moe's top-k over many experts
+TOKEN_ARCHS = ["deepseek-moe-16b", "hymba-1.5b", "gemma3-4b", "stablelm-12b",
+               "qwen3-moe-30b-a3b"]
+
+
+@pytest.mark.parametrize("arch,layers", [
+    pytest.param(a, None, id=a) for a in ARCHS + TOKEN_ARCHS] + [
+    pytest.param("gemma3-4b", 6, id="gemma3-4b-6layers")])
+def test_engine_tokens_equal_the_reference_engine(arch, layers):
     """Float32, the reference's parameters carried across: the port's
     engine and the reference's give the same tokens for the same requests
-    (with slot reuse: 5 requests through 3 slots).  The MoE routes each
-    decode lane alone, as the reference's per-lane ``vmap`` does; the
-    hybrid carries its SSM state by slot."""
+    (with slot reuse: 5 requests through 3 slots, positions up to 10).
+    The MoE routes each decode lane alone, as the reference's per-lane
+    ``vmap`` does; the hybrid carries its SSM state by slot; gemma3's
+    layers mask keys past their window of 8, and at 6 layers the sixth is
+    global."""
+    cut = {} if layers is None else dict(n_layers=layers)
     cfg = dataclasses.replace(reduced(get_config(canon(arch))),
-                              dtype="float32")
-    pcfg = _cfg(arch, "float32")
+                              dtype="float32", **cut)
+    pcfg = dataclasses.replace(_cfg(arch, "float32"), **cut)
     params = RT.init_params(jax.random.PRNGKey(0), cfg)
     pp = convert.from_reference(jax.tree.map(np.asarray, params), pcfg,
                                 "cpu")
@@ -361,8 +375,7 @@ def test_launcher_traffic_puts_the_spike_in_the_middle_third():
             for t in range(ticks)] == [160.0] * 8 + [40.0] * 16
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["deepseek-moe-16b",
-                                          "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ARCHS + TOKEN_ARCHS)
 def test_the_models_hand_the_kernels_what_their_cuda_wrappers_take(
         arch, monkeypatch):
     """The CUDA wrappers refuse views, dtypes and shapes their kernels do
@@ -391,3 +404,68 @@ def test_the_models_hand_the_kernels_what_their_cuda_wrappers_take(
     per_layer = 2 if cfg.kind == "hybrid" else 1    # attention and the SSM
     assert len(seen) == per_layer * cfg.n_layers * (eng.prefills
                                                     + eng.decode_rounds)
+
+
+@pytest.mark.parametrize("arch", ["chameleon-34b", "musicgen-large"])
+def test_embedding_stub_models_are_refused_by_both_engines(arch):
+    """A model of ``frontend="embedding_stub"`` takes embeddings, where a
+    request carries token ids: the reference's engine fails with a
+    ``ValueError`` at its first prefill, the port's refuses at
+    construction with a ``ValueError`` naming the frontend."""
+    cfg = reduced(get_config(canon(arch)))
+    pcfg = _cfg(arch)
+    assert cfg.frontend == pcfg.frontend == "embedding_stub"
+    params = RT.init_params(jax.random.PRNGKey(0), cfg)
+    jeng = JServingEngine(cfg, params, n_slots=2, max_seq=MAX_SEQ,
+                          n_instances=1)
+    jeng.submit(JRequest(uid=0, prompt=_prompts(cfg, 1)[0], max_new=3))
+    with pytest.raises(ValueError):
+        jeng.tick()
+    with pytest.raises(ValueError, match="embedding_stub"):
+        _engine(pcfg, PT.init_params(pcfg, seed=0, device="cpu"), 2, 1)
+
+
+def test_serve_phase_rehearsal():
+    """``chip_smoke.serve_full_width`` on the CPU at reduced gemma3-4b
+    (both engines eager there): prompts of 8 and 7 new tokens cross the
+    reduced window of 8, the float32 copy runs 6 layers (the sixth
+    global), and every check of the phase that the CPU can run passes."""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  root / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    # the bfloat16 engines and their parameters are freed before the
+    # float32 copy is drawn (a local once kept the graph engine alive:
+    # on the card, qwen3-moe's 61 GB beside the copy's)
+    before = {id(o) for o in gc.get_objects() if type(o) is ServingEngine}
+    alive = []
+    free = cs._free_card
+
+    def counted(dev):
+        free(dev)
+        alive.append(sum(type(o) is ServingEngine and id(o) not in before
+                         for o in gc.get_objects()))
+    cs._free_card = counted
+    # one intra-op thread: beside the other test workers, torch's thread
+    # pool only spins at these sizes
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = cs.serve_full_width("cpu", "gemma3-4b", reduced=True,
+                                  max_seq=32, prompt_len=8, max_new=7,
+                                  ticks=6, check_layers=6, eager_rounds=24)
+    finally:
+        torch.set_num_threads(threads)
+    assert out["phase"] == "serve_gemma3_4b" and out["layers"] == 2
+    assert out["requests"] > 0
+    assert out["first_tokens_equal_reference"] == out["requests"]
+    assert out["max_decode_position"] == 8 + 7 - 2 > 8
+    assert out["eager"]["requests_token_identical_to_graph"] > 0
+    assert out["manual_reconfig"]["vsn_bytes"] == 0
+    assert out["manual_reconfig"]["sn_bytes"] > 0
+    f32 = out["float32_copy"]
+    assert f32["layers"] == 6
+    assert f32["requests_token_identical"] == f32["requests"]
+    assert f32["requests_token_identical_batch1"] == f32["requests"]
+    assert alive == [0, 0]

@@ -1,6 +1,7 @@
 """The serving engine's bucketed, padded rounds and its CUDA-graph path on
-the CPU, for qwen3-14b, rwkv6-7b, deepseek-moe-16b and hymba-1.5b at
-reduced widths.
+the CPU, for qwen3-14b, rwkv6-7b, deepseek-moe-16b, hymba-1.5b, gemma3-4b
+(its layers' window of 8 crossed by positions up to 14), stablelm-12b
+and qwen3-moe-30b-a3b at reduced widths.
 
 One traffic (``LENS``, ``NEWS``, ``ARRIVE``: mixed prompt lengths and
 budgets, arrivals over rounds, 4 slots, a VSN switch at round 2 and an SN
@@ -38,7 +39,8 @@ from repro_torch.serving import Request, ServingEngine, reference_decode
 from repro_torch.serving.kv_pool import _leaves
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-ARCHS = ["qwen3-14b", "rwkv6-7b", "deepseek-moe-16b", "hymba-1.5b"]
+ARCHS = ["qwen3-14b", "rwkv6-7b", "deepseek-moe-16b", "hymba-1.5b",
+         "gemma3-4b", "stablelm-12b", "qwen3-moe-30b-a3b"]
 MAX_SEQ, N_SLOTS = 24, 4
 LENS = [3, 6, 4, 7, 5, 3, 8]
 NEWS = [5, 3, 6, 1, 4, 7, 2]
