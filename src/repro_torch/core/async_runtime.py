@@ -43,11 +43,25 @@ steps stay absolute across restarts.
 
 ``run_sync`` is the measured baseline: the same semantics as a plain host
 loop (generate, step, wait for the outputs).
+
+Spans (with an ``obs`` installed and span timing on; each carries the
+first tick id of the super-batch it served).  The ingest thread, named
+``ingest``: ``ingest.source`` (each ``next()`` on the source),
+``ingest.meta`` (``tick_meta``), ``ingest.stage`` (with the driver's
+``stage.pack`` and ``stage.copy``) and ``ingest.put_wait`` (a put that
+blocked on a full queue).  The step loop: ``runtime.queue_get``,
+``runtime.checkpoint``, ``controller.decide``, ``runtime.dispatch`` (with
+the driver's ``driver.*``) and ``runtime.drain`` (``runtime.flag_read``,
+the control-lane read; ``runtime.sink``; ``runtime.load_read``).  Each
+staged item's ``runtime.queue_residence``, from the put call to the get's
+return, is kept on the thread name ``queue``.  A span reads the host clock
+only: no device read, no sync.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import threading
 import time
 from typing import Any, List, Optional, Tuple
@@ -65,6 +79,9 @@ from repro_torch.io.queues import BoundedQueue, QueueClosed
 from repro_torch.io.sinks import CollectSink
 
 
+_END = object()                    # the source's end, for next()
+
+
 @dataclasses.dataclass
 class TickMeta:
     """Host-side facts about one tick, computed in the ingest thread."""
@@ -78,6 +95,7 @@ class TickMeta:
 class StagedTick:
     meta: TickMeta
     staged: T.TupleBatch           # on the pipeline's device
+    t_put: Optional[float] = None  # the put call (span timing on only)
 
 
 @dataclasses.dataclass
@@ -89,6 +107,7 @@ class StagedSuper:
     metas: List[TickMeta]          # one per real tick, in order
     stack: T.TupleBatch            # on the pipeline's device
     n_pad: int
+    t_put: Optional[float] = None  # the put call (span timing on only)
 
 
 @dataclasses.dataclass
@@ -258,10 +277,13 @@ class AsyncStreamRuntime:
                 self._ingest_super(max_ticks, n_inputs, k_virt, with_hist,
                                    frontier)
                 return
-            for i, b in enumerate(self.source):
-                if max_ticks is not None and i >= max_ticks:
+            src = iter(self.source)
+            for i in itertools.count():
+                with _obs.span("ingest.source", tick=self.tick0 + i):
+                    b = next(src, _END)
+                if b is _END or (max_ticks is not None and i >= max_ticks):
                     break
-                with _obs.span("ingest.stage"):
+                with _obs.span("ingest.stage", tick=self.tick0 + i):
                     meta = tick_meta(b, self.tick0 + i, n_inputs, k_virt,
                                      frontier, with_hist=with_hist)
                     staged = self.pipeline.stage(b)
@@ -270,7 +292,7 @@ class AsyncStreamRuntime:
                     ok = _np(b.valid) & ~_np(b.is_control)
                     tl.scan(_np(b.source), _np(b.tau), ok, "stage",
                             tick_id=meta.tick_id)
-                self.queue.put(StagedTick(meta, staged))
+                self._put(StagedTick(meta, staged), meta.tick_id)
         except BaseException as e:              # surfaced after join()
             self._ingest_error = e
             _obs.event("ingest_error", error=repr(e))
@@ -294,24 +316,32 @@ class AsyncStreamRuntime:
                 return
             n_pad = k - len(group)
             b0 = group[0]
-            with _obs.span("ingest.stage"):
+            first = metas[0].tick_id
+            with _obs.span("ingest.stage", tick=first):
                 ticks = group + [T.empty_batch(b0.batch, b0.kmax,
                                                b0.payload_width,
                                                b0.device)] * n_pad
                 stack = self.pipeline.stage_super(ticks)
-            self.queue.put(StagedSuper(metas=metas, stack=stack,
-                                       n_pad=n_pad))
+            self._put(StagedSuper(metas=metas, stack=stack, n_pad=n_pad),
+                      first)
             group, metas = [], []
 
-        for i, b in enumerate(self.source):
-            if max_ticks is not None and i >= max_ticks:
+        src = iter(self.source)
+        for i in itertools.count():
+            # the spans of a tick carry the id of the super-batch it fills
+            with _obs.span("ingest.source", tick=(
+                    metas[0].tick_id if metas else self.tick0 + i)):
+                b = next(src, _END)
+            if b is _END or (max_ticks is not None and i >= max_ticks):
                 break
             key = (b.batch, b.kmax, b.payload_width)
             if group and key != gkey:
                 flush()
             gkey = key
-            metas.append(tick_meta(b, self.tick0 + i, n_inputs, k_virt,
-                                   frontier, with_hist=with_hist))
+            with _obs.span("ingest.meta", tick=(
+                    metas[0].tick_id if metas else self.tick0 + i)):
+                metas.append(tick_meta(b, self.tick0 + i, n_inputs, k_virt,
+                                       frontier, with_hist=with_hist))
             tl = _obs.exemplars()
             if tl is not None:
                 ok = _np(b.valid) & ~_np(b.is_control)
@@ -323,6 +353,22 @@ class AsyncStreamRuntime:
             if len(group) == k:
                 flush()
         flush()
+
+    def _put(self, item, tick: int) -> None:
+        """Hand a staged item to the step loop.  With span timing on, the
+        put call is stamped on the item (its queue residence starts there)
+        and a put that blocked on a full queue is kept as
+        ``ingest.put_wait``."""
+        tr = _obs.tracer()
+        if tr is None:
+            self.queue.put(item)
+            return
+        blocked = self.queue.blocked_puts
+        item.t_put = time.perf_counter()
+        self.queue.put(item)
+        if self.queue.blocked_puts != blocked:
+            tr.record("ingest.put_wait", item.t_put, time.perf_counter(),
+                      tick=tick)
 
     @staticmethod
     def _combine_meta(metas: List[TickMeta]) -> TickMeta:
@@ -360,22 +406,38 @@ class AsyncStreamRuntime:
         the source for the NEXT tick, is subtracted so a starved source
         does not inflate tick latency."""
         tick_id, meta = p.tick_id, p.meta
-        with _obs.span("runtime.drain"):
-            sw = bool(p.switched)
-            self._settle(p)
-            load = (_np(p.inst_load) if p.inst_load is not None
-                    else self._host_inst_load(meta.key_hist))
-        latency = max(time.perf_counter() - p.t_dispatch - idle_s, 0.0)
-        _obs.event("tick", tick_id=tick_id, n_tuples=meta.n_tuples,
-                   latency_ms=latency * 1e3, queue_depth=self.queue.depth,
-                   queue_high_water=self.queue.high_water, switched=sw,
-                   wmark_frontier=meta.frontier_before.tolist())
+        with _obs.span("runtime.drain", tick=tick_id):
+            # the control-lane read: waits for the stream, which holds the
+            # super-batch dispatched after this one
+            with _obs.span("runtime.flag_read"):
+                sw = bool(p.switched)
+            with _obs.span("runtime.sink"):
+                self._settle(p)
+            with _obs.span("runtime.load_read"):
+                load = (_np(p.inst_load) if p.inst_load is not None
+                        else self._host_inst_load(meta.key_hist))
+            self._record_tick(p, sw, load,
+                         max(time.perf_counter() - p.t_dispatch - idle_s,
+                             0.0))
+
+    def _record_tick(self, p: _InFlight, sw: bool, load,
+                     latency: float) -> None:
+        """Fold a drained tick's metrics into the bus (and the ``obs``
+        event ring, timelines and SLO rules when installed), and commit a
+        switch to the host shadows."""
+        tick_id, meta = p.tick_id, p.meta
+        o = _obs.get()
+        if o is not None:       # the off path builds no event fields
+            _obs.event("tick", tick_id=tick_id, n_tuples=meta.n_tuples,
+                       latency_ms=latency * 1e3,
+                       queue_depth=self.queue.depth,
+                       queue_high_water=self.queue.high_water, switched=sw,
+                       wmark_frontier=meta.frontier_before.tolist())
         # record BEFORE updating the shadows: this tick's load was measured
         # under the pre-switch tables
         self.metrics.record_tick(tick_id, meta.n_tuples, latency, load,
                                  self.queue.depth,
                                  n_active=int(self._active_shadow.sum()))
-        o = _obs.get()
         if o is not None:
             if o.timeline is not None:
                 o.timeline.mark_tick(tick_id, "drain")
@@ -399,51 +461,62 @@ class AsyncStreamRuntime:
     def _decide(self, meta: TickMeta) -> Optional[Reconfiguration]:
         if self.controller is None:
             return None
-        hint = None
-        if hasattr(self.source, "rate_hint"):
-            hint = self.source.rate_hint(meta.tick_id)
-        if hint is None and len(self.metrics.records) < 2:
-            return None    # no rate signal yet: a measured rate of 0.0 at
-            # stream start would read as idle and trigger a bogus scale-down
-        breaches = tuple(self._pending_breaches)
-        self._pending_breaches.clear()
-        snap = self.metrics.snapshot(
-            rate_hint=hint, queue_depth=self.queue.depth,
-            backlog_tuples=float(self.queue.depth * meta.n_tuples),
-            slo_breaches=breaches)
-        with _obs.span("controller.decide"):
+        with _obs.span("controller.decide", tick=meta.tick_id):
+            hint = None
+            if hasattr(self.source, "rate_hint"):
+                hint = self.source.rate_hint(meta.tick_id)
+            if hint is None and len(self.metrics.records) < 2:
+                return None    # no rate signal yet: a measured rate of 0.0
+                # at stream start would read as idle and trigger a bogus
+                # scale-down
+            breaches = tuple(self._pending_breaches)
+            self._pending_breaches.clear()
+            snap = self.metrics.snapshot(
+                rate_hint=hint, queue_depth=self.queue.depth,
+                backlog_tuples=float(self.queue.depth * meta.n_tuples),
+                slo_breaches=breaches)
             return self.controller.observe_live(snap)
 
     # -- the loop -----------------------------------------------------------
     def run(self, max_ticks: Optional[int] = None) -> RunReport:
         th = threading.Thread(target=self._ingest, args=(max_ticks,),
-                              daemon=True)
+                              name="ingest", daemon=True)
         self.metrics.start()
         th.start()
         pending = None
         try:
             while True:
                 t_wait = time.perf_counter()
-                try:
-                    item = self.queue.get()
-                except QueueClosed:     # ingest done and every tick drained
-                    break
-                idle_s = time.perf_counter() - t_wait
-                sup = isinstance(item, StagedSuper)
-                meta = self._combine_meta(item.metas) if sup else item.meta
+                with _obs.span("runtime.queue_get") as span:
+                    try:
+                        item = self.queue.get()
+                    except QueueClosed:  # ingest done, every tick drained
+                        break
+                    t_got = time.perf_counter()
+                    idle_s = t_got - t_wait
+                    sup = isinstance(item, StagedSuper)
+                    meta = (self._combine_meta(item.metas) if sup
+                            else item.meta)
+                    span.tick = meta.tick_id
+                    if item.t_put is not None:
+                        tr = _obs.tracer()
+                        if tr is not None:
+                            tr.record("runtime.queue_residence", item.t_put,
+                                      t_got, tick=meta.tick_id,
+                                      thread="queue")
                 if self.checkpointer is not None:
                     # the boundary BEFORE this dispatch: the pipeline state
                     # covers every tick < meta.tick_id; if it is saved, the
                     # tick in flight is settled first, then the capture
                     # copies the state to the host; the disk write is
                     # asynchronous
-                    with _obs.span("runtime.checkpoint"):
+                    with _obs.span("runtime.checkpoint", tick=meta.tick_id):
                         self.checkpointer.maybe_save(
                             meta.tick_id, meta.frontier_before,
                             before=lambda: self._settle(pending))
                 rc = self._decide(meta)
                 t0 = time.perf_counter()
-                with _obs.span("runtime.dispatch"):
+                with _obs.span("runtime.dispatch", tick=meta.tick_id):
                     if sup:
                         out = self.pipeline.run_persistent_staged(
                             item.stack, reconfig=rc, reconfig_at=0,

@@ -38,6 +38,13 @@ shown exact it sets a device flag (``fault``) that the pipeline raises on
 after the replay, at a read it already makes: the end of
 ``run_persistent``, or the async runtime's control-lane read.  Run
 eagerly, the tick runs every due round instead.
+
+With an ``obs`` span timing on, ``stage_super`` opens ``stage.pack`` (the
+pinned buffers allocated and filled) and ``stage.copy`` (the side-stream
+copies enqueued), and a persistent call ``driver.operands``,
+``driver.load`` (the operands into the graph's static buffers, pinning
+included), ``driver.replay``, ``driver.clone`` (the outputs' clones) and,
+on a shape's first call, ``driver.capture``.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
+from repro_torch import obs as _obs
 from repro_torch.core import elastic, scalegate, sn, vsn
 from repro_torch.core import tuples as T
 from repro_torch.core.controller import Reconfiguration
@@ -240,13 +248,18 @@ class _GraphRunner:
               and self.device.type == "cuda" else contextlib.nullcontext()):
             g = self.graphs.get(key)
             if g is None:
-                return self._capture(key, ticks, state, operands, fixed)
-            _load(g.state, state)
-            _load(g.operands, operands)
-            g.graph.replay()
+                with _obs.span("driver.capture"):
+                    return self._capture(key, ticks, state, operands, fixed)
+            with _obs.span("driver.load"):
+                _load(g.state, state)
+                _load(g.operands, operands)
+            with _obs.span("driver.replay"):
+                g.graph.replay()
             dispatch.add_launches(g.launches)
             g.replays += 1
-            return g.state + tuple(tree_map(_clone, o) for o in g.outs)
+            with _obs.span("driver.clone"):
+                outs = tuple(tree_map(_clone, o) for o in g.outs)
+            return g.state + outs
 
     def _capture(self, key, ticks, state, operands, fixed):
         dev = self.device
@@ -433,31 +446,36 @@ class _Driver:
         pad = T.empty_batch(n, kmax, p, "cpu")
         if self.device.type != "cuda" or any(b.device.type == "cuda"
                                              for b in batches):
-            pad = pad.to(self.device)
-            batches = [b.to(self.device) for b in batches]
-            return T.TupleBatch(**{f: torch.stack([
-                torch.cat([getattr(b, f), getattr(pad, f)])
-                for b in batches]) for f in T.FIELDS})
-        if self._stage_stream is None:
-            self._stage_stream = torch.cuda.Stream(self.device)
-        k, width = len(batches), b0.batch + n
-        host = {}
-        for f in T.FIELDS:
-            a0 = getattr(b0, f)
-            h = torch.empty((k, width) + tuple(a0.shape[1:]), dtype=a0.dtype,
-                            pin_memory=True)
-            h[:, :b0.batch] = torch.stack([getattr(b, f) for b in batches])
-            h[:, b0.batch:] = getattr(pad, f)
-            host[f] = h
-        with torch.cuda.stream(self._stage_stream):
-            staged = {f: h.to(self.device, non_blocking=True)
-                      for f, h in host.items()}
-            done = torch.cuda.Event()
-            done.record(self._stage_stream)
-        cur = torch.cuda.current_stream(self.device)
-        cur.wait_event(done)
-        for t in staged.values():
-            t.record_stream(cur)
+            with _obs.span("stage.copy"):
+                pad = pad.to(self.device)
+                batches = [b.to(self.device) for b in batches]
+            with _obs.span("stage.pack"):
+                return T.TupleBatch(**{f: torch.stack([
+                    torch.cat([getattr(b, f), getattr(pad, f)])
+                    for b in batches]) for f in T.FIELDS})
+        with _obs.span("stage.pack"):
+            k, width = len(batches), b0.batch + n
+            host = {}
+            for f in T.FIELDS:
+                a0 = getattr(b0, f)
+                h = torch.empty((k, width) + tuple(a0.shape[1:]),
+                                dtype=a0.dtype, pin_memory=True)
+                h[:, :b0.batch] = torch.stack([getattr(b, f)
+                                               for b in batches])
+                h[:, b0.batch:] = getattr(pad, f)
+                host[f] = h
+        with _obs.span("stage.copy"):
+            if self._stage_stream is None:
+                self._stage_stream = torch.cuda.Stream(self.device)
+            with torch.cuda.stream(self._stage_stream):
+                staged = {f: h.to(self.device, non_blocking=True)
+                          for f, h in host.items()}
+                done = torch.cuda.Event()
+                done.record(self._stage_stream)
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(done)
+            for t in staged.values():
+                t.record_stream(cur)
         return T.TupleBatch(**staged)
 
     def _operands(self, stack: T.TupleBatch, reconfig, reconfig_at: int,
@@ -608,13 +626,17 @@ class VSNPipeline(_Driver):
         tick ``reconfig_at``; ``frontier`` must then be the per-source last
         forwarded tau after the ticks before it (see ``run_persistent``).
         After the call the pipeline's state is the state after tick K."""
-        key, operands = self._operands(stack, reconfig, reconfig_at, frontier)
+        with _obs.span("driver.operands"):
+            key, operands = self._operands(stack, reconfig, reconfig_at,
+                                           frontier)
         if self.device.type == "cuda":
             res = self._replay(key, operands)
         else:
-            res = self._persistent_ticks(
-                self.sg, self.epoch, self.sigma,
-                *(tree_map(lambda a: a.to(self.device), x) for x in operands))
+            with _obs.span("driver.load"):
+                operands = tuple(tree_map(lambda a: a.to(self.device), x)
+                                 for x in operands)
+            res = self._persistent_ticks(self.sg, self.epoch, self.sigma,
+                                         *operands)
         (self.sg, self.epoch, self.sigma, o1, o2, sw, wmk, il,
          self.fault) = res
         return PersistentOut(outs_pre=o1, outs_post=o2, switched=sw,

@@ -57,7 +57,8 @@ from .slo import SloBreach, SloEngine, SloRule
 
 __all__ = [
     "ObsConfig", "Obs", "install", "get", "set_current",
-    "span", "event", "counter_inc", "gauge_set", "observe", "exemplars",
+    "span", "tracer", "event", "counter_inc", "gauge_set", "observe",
+    "exemplars",
     "drain_payload", "ingest_payload",
     "MetricsRegistry", "Tracer", "FlightRecorder",
     "HeadSampler", "ExemplarTimelines", "is_exemplar",
@@ -272,13 +273,24 @@ def get() -> Optional[Obs]:
 
 # ------------------------------------- near-free instrumentation helpers --
 
-def span(name: str):
-    """Open a tracing span on the current Obs; no-op singleton if obs or
-    tracing is off (one global load + None test on the off path)."""
+def span(name: str, tick: Optional[int] = None):
+    """Open a tracing span on the current Obs (``tick``: the first tick id
+    of the super-batch it serves); no-op singleton if obs or tracing is
+    off (one global load + None test on the off path)."""
     o = _current
     if o is None or not o.tracer.enabled:
         return _NULL_SPAN
-    return o.tracer.span(name)
+    return o.tracer.span(name, tick)
+
+
+def tracer() -> Optional[Tracer]:
+    """The current Obs's tracer when span timing is on, else None: call
+    sites that time an interval themselves (``Tracer.record``) test it
+    before reading the clock."""
+    o = _current
+    if o is None or not o.tracer.enabled:
+        return None
+    return o.tracer
 
 
 def event(kind: str, **fields) -> None:

@@ -16,6 +16,14 @@ Cross-process: a child tracer's finished spans are shipped as plain dicts
 (``drain()``) over the ingest channels and folded into the parent with
 ``ingest()`` (durations re-observed into the parent registry, records
 tagged with the child pid).
+
+A record holds the span's name, its nesting path, its thread's name, its
+start and end on ``time.perf_counter`` (``t0``, ``t_end``: the two clock
+reads that time it), its duration, the pid and an optional ``tick``: the
+first tick id of the super-batch it served (a span opened without one
+takes its parent's).  ``record(name, t0, t1)`` keeps an interval that one
+thread opens and another closes (a staged item's time in the queue).
+``dropped`` counts the records the full ring pushed out.
 """
 
 from __future__ import annotations
@@ -33,6 +41,9 @@ class _NullSpan:
     """Singleton no-op context manager returned when tracing is off."""
     __slots__ = ()
 
+    # a tick id set on the span once known: dropped
+    tick = property(lambda self: None, lambda self, v: None)
+
     def __enter__(self):
         return self
 
@@ -44,11 +55,12 @@ _NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    __slots__ = ("tracer", "name", "path", "t0", "_local")
+    __slots__ = ("tracer", "name", "path", "tick", "t0", "_local")
 
-    def __init__(self, tracer: "Tracer", name: str, local):
+    def __init__(self, tracer: "Tracer", name: str, local, tick):
         self.tracer = tracer
         self.name = name
+        self.tick = tick
         self._local = local
         parent = local.stack[-1].path if local.stack else ""
         self.path = f"{parent}/{name}" if parent else name
@@ -60,11 +72,14 @@ class _Span:
         return self
 
     def __exit__(self, *exc):
-        dur = time.perf_counter() - self.t0
+        t1 = time.perf_counter()
         stack = self._local.stack
         if stack and stack[-1] is self:
             stack.pop()
-        self.tracer._finish(self, dur)
+        if self.tick is None and stack:
+            self.tick = stack[-1].tick
+        self.tracer._finish(self.name, self.path, self.t0, t1, self.tick,
+                            self._local.thread)
         return False
 
 
@@ -76,6 +91,8 @@ class Tracer:
         self.registry = registry
         self.enabled = enabled
         self.finished: deque = deque(maxlen=span_cap)
+        self.dropped = 0           # records the full ring pushed out
+        self._ring_lock = threading.Lock()
         self._tls = threading.local()
         self._pid = os.getpid()
         # optional HeadSampler: thins the finished-record ring only —
@@ -87,26 +104,44 @@ class Tracer:
         local = self._tls
         if not hasattr(local, "stack"):
             local.stack = []
+            local.thread = threading.current_thread().name
         return local
 
-    def span(self, name: str):
+    def span(self, name: str, tick: Optional[int] = None):
         if not self.enabled:
             return _NULL_SPAN
-        return _Span(self, name, self._local())
+        return _Span(self, name, self._local(), tick)
 
-    def _finish(self, span: _Span, dur: float) -> None:
-        self.registry.observe(f"span.{span.name}", dur)
-        if self.sampler is not None and not self.sampler.admit_span(
-                span.name):
+    def record(self, name: str, t0: float, t1: float,
+               tick: Optional[int] = None,
+               thread: Optional[str] = None) -> None:
+        """Keep the interval ``[t0, t1]`` (``perf_counter`` seconds) as a
+        finished span of the calling thread, nested under its open spans,
+        or as a span of its own on the lane ``thread``."""
+        if not self.enabled:
             return
-        self.finished.append({
-            "name": span.name,
-            "path": span.path,
-            "dur_s": dur,
-            "t_end": time.perf_counter(),
-            "wall_end": time.time(),
-            "pid": self._pid,
-        })
+        local = self._local()
+        if thread is None and local.stack:
+            path = f"{local.stack[-1].path}/{name}"
+        else:
+            path = name
+        self._finish(name, path, t0, t1, tick, thread or local.thread)
+
+    def _finish(self, name: str, path: str, t0: float, t1: float,
+                tick: Optional[int], thread: str) -> None:
+        dur = t1 - t0
+        self.registry.observe(f"span.{name}", dur)
+        if self.sampler is not None and not self.sampler.admit_span(name):
+            return
+        self._keep({"name": name, "path": path, "thread": thread,
+                    "t0": t0, "t_end": t1, "dur_s": dur, "pid": self._pid,
+                    "tick": tick})
+
+    def _keep(self, rec: Dict) -> None:
+        with self._ring_lock:
+            if len(self.finished) == self.finished.maxlen:
+                self.dropped += 1
+            self.finished.append(rec)
 
     # -- cross-process shipping ---------------------------------------------
     def drain(self) -> List[Dict]:
@@ -127,7 +162,7 @@ class Tracer:
             self.registry.observe(f"span.{s['name']}", s["dur_s"])
             if wall_offset and "wall_end" in s:
                 s["wall_end"] = s["wall_end"] + wall_offset
-            self.finished.append(s)
+            self._keep(s)
 
     def stage_latency_ms(self) -> Dict[str, Dict[str, float]]:
         """Per-stage latency breakdown {stage: {p50,p90,p99,mean}} in ms,
