@@ -25,6 +25,9 @@ Phases, in order; each prints one JSON line and any failure exits nonzero:
                  ``acc`` left unchanged, and a sweep over the cluster size;
                  window_join at the Q3 and bench shapes, n_attrs 12,
                  524,289 key rows and ``join_edge_cases``;
+                 window_join_emit (the fast join's phase 1) at Q3's shape
+                 for all key rows, one instance's and none, and with
+                 ``out_cap`` 8 against more hits;
                  flash_attention at 65,544 (lane, KV head) pairs and
                  at the shapes phases 20-22 serve (``served_attention``:
                  gemma3-12b's local and global decode at depth 1300 and
@@ -236,6 +239,11 @@ runs one serve phase alone at the default run's arguments for ``ARCH``
 (``SERVE_ALONE``): any served model, or gemma3-4b (gemma3-12b's path at
 smaller widths, which the default run leaves out), the kernels built
 first.
+
+    python3 chip_smoke.py --join-emit
+
+runs the fast join's phase-1 kernel check (``check_window_join_emit``)
+and the ``q3_persistent`` phase alone, the kernels built first.
 """
 
 import dataclasses
@@ -1010,6 +1018,86 @@ def check_window_join(dev):
         assert int(want[1]) > 0, name
     return dict(name="window_join", cases=n_cases, max_abs_err=0.0,
                 **timed(args, ws.ws, int((st.tau >= 0).sum())), q3=q3_row)
+
+
+# window_join_emit's shape: Q3's tick against its full window (B 32, K
+# 4,096, R 160, P 7, n_attrs 2, out_cap 1,024, WS 300 s)
+EMIT_SHAPE = dict(b=32, k=4096, r=160, p=7, ws=300_000, out_cap=1024)
+
+
+def emit_inputs(dev, resp: str, seed: int = 30):
+    """One instance's phase-1 call at ``EMIT_SHAPE``: a full window of
+    uniform [1, 10000] rows (ScaleJoin's), every slot live and fresh, and
+    ``resp`` all rows ("all"), balanced_fmu's instance 1 of 4
+    ("round_robin", the main path's call at 4 instances) or none ("none",
+    an inactive instance)."""
+    s = EMIT_SHAPE
+    g = np.random.default_rng(seed)
+    b, k, r, p = s["b"], s["k"], s["r"], s["p"]
+    now = 10 * s["ws"]
+    rows = {"all": np.ones(k, bool), "round_robin": np.arange(k) % 4 == 1,
+            "none": np.zeros(k, bool)}[resp]
+    return [torch.as_tensor(a, device=dev) for a in (
+        np.sort(g.integers(now, now + 16, b)).astype(np.int32),
+        g.integers(0, 2, b).astype(np.int32),
+        g.integers(1, 10_001, (b, p)).astype(np.float32),
+        np.ones(b, bool),
+        g.integers(now - s["ws"], now, (k, r)).astype(np.int32),
+        g.integers(0, 2, (k, r)).astype(np.int32),
+        g.integers(1, 10_001, (k, r, p)).astype(np.float32), rows)]
+
+
+def check_window_join_emit(dev):
+    """``window_join_emit`` (the fast join tick's phase 1) against its
+    plain version on the card, rows, count and comparisons exactly, at
+    Q3's shape for all rows, an instance's round-robin rows and none, and
+    with ``out_cap`` 8 against more hits.  Timed at each (the headline row
+    is the round-robin call, the main path's); the bound counts what the
+    work needs: the resp rows' tau, stream and the two compared columns
+    read once, the incoming block, the rows written; an add and 3
+    compares a pair, a subtract, abs and compare a column of each
+    opposite pair."""
+    from repro_torch.kernels.window_join.ops import window_join_emit_op
+    from repro_torch.kernels.window_join.ref import window_join_emit_ref
+    kw = dict(ws=EMIT_SHAPE["ws"], band=10.0, n_attrs=2,
+              out_cap=EMIT_SHAPE["out_cap"])
+    n_cases = 0
+
+    def compare(args, **kw_):
+        nonlocal n_cases
+        got = window_join_emit_op(*args, **kw_)
+        want = window_join_emit_ref(*args, **kw_)
+        if not (torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
+                and int(got[2]) == int(want[2])):
+            raise AssertionError(f"window_join_emit differs: {kw_}")
+        n_cases += 1
+        return want
+
+    def timed(resp):
+        args = emit_inputs(dev, resp)
+        _, n1, comps = compare(args, **kw)
+        row = timings(lambda: window_join_emit_op(*args, **kw),
+                      lambda: window_join_emit_ref(*args, **kw))
+        b, (k, r) = args[0].shape[0], args[4].shape
+        rows = int(args[7].sum())
+        ms, by = bound(b * 17 + k + rows * r * 16 + kw["out_cap"] * 8 + 12,
+                       int_ops=4 * b * rows * r, fp_ops=3 * 2 * int(comps))
+        return dict(shape=f"B={b}, K={k}, R={r}, P=7, n_attrs=2, "
+                          f"resp rows={rows}, hits={int(n1)}, "
+                          f"comps={int(comps)}",
+                    **row, bound_ms=ms, bound_by=by,
+                    kernels_per_call=kernels_per_call(
+                        lambda: window_join_emit_op(*args, **kw)))
+
+    rows = {resp: timed(resp) for resp in ("round_robin", "all", "none")}
+    args = emit_inputs(dev, "all")
+    args[6][..., :2] = args[6][..., :2] % 40   # dense hits, past out_cap
+    args[2][:, :2] = args[2][:, :2] % 40
+    want = compare(args, **dict(kw, out_cap=8))
+    assert int(want[1]) > 8
+    return dict(name="window_join_emit", cases=n_cases, max_abs_err=0.0,
+                **rows["round_robin"], all_rows=rows["all"],
+                no_rows=rows["none"])
 
 
 def check_flash_attention(dev):
@@ -2386,6 +2474,7 @@ def q3_persistent(dev, k=4):
     dev = torch.device(dev)
     ws = WindowSpec(wa=1, ws=300_000, wt="single")
     fj = join.band_predicate(10.0, 2)
+    dense0 = join.DENSE_PHASE1_CALLS
     op = join.scalejoin_def(ws, K, fj, payload_width=P, ring=RING,
                             out_cap=1024)
     batches = list(datagen.scalejoin(np.random.default_rng(3),
@@ -2448,9 +2537,13 @@ def q3_persistent(dev, k=4):
                reconfig_tick=RC_AT, equal_to_eager=True,
                equal_to_cpu_as_unordered_pairs=True, comparisons=total,
                output_pairs=sum(len(r[0]) for r in rows), launches=launches)
+    # a BandPredicate's phase 1 never takes the dense masks
+    assert join.DENSE_PHASE1_CALLS == dense0, join.DENSE_PHASE1_CALLS
     if dev.type != "cuda":
         return out
     assert launches["scalegate_merge"] > 0, launches
+    # one call an instance and epoch phase a tick, graph replays included
+    assert launches["window_join_emit"] == 2 * 4 * N_TICKS, launches
     graphs = pipe.persistent_graphs()
     assert len(graphs) == 1 and \
         next(iter(graphs.values()))["replays"] == N_TICKS // k - 1, graphs
@@ -4335,6 +4428,24 @@ def moe_mesh(dev, params=None, mcfg=None, *, batch=8, prompt_len=128,
     return out
 
 
+def join_emit_alone() -> int:
+    """``--join-emit``: ``check_window_join_emit`` and ``q3_persistent``
+    alone, the kernels built first."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+    import repro_torch.kernels.scalegate_merge.ops      # noqa: F401
+    import repro_torch.kernels.window_join.ops          # noqa: F401
+    build.build()
+    build.library()
+    dev = torch.device("cuda", 0)
+    for check in (check_window_join_emit, q3_persistent):
+        t0 = time.perf_counter()
+        out = check(dev)
+        out["seconds"] = time.perf_counter() - t0
+        emit(out)
+    return 0
+
+
 def serve_alone(arch: str) -> int:
     """``--serve ARCH``: one serve phase alone at the default run's
     arguments for ``arch`` (``SERVE_ALONE``), the kernels built first."""
@@ -4785,6 +4896,9 @@ def main(argv) -> int:
     if argv[:1] == ["--moe-mesh"]:
         print(card_line(), flush=True)
         return moe_mesh_alone()
+    if argv[:1] == ["--join-emit"]:
+        print(card_line(), flush=True)
+        return join_emit_alone()
     if argv[:1] == ["--serve"]:
         print(card_line(), flush=True)
         return serve_alone(argv[1] if len(argv) == 2 else "")
@@ -4812,7 +4926,8 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     rows = [check_scalegate_merge(dev), check_scalegate_merge_stacked(dev),
             check_segment_aggregate(dev), check_window_join(dev),
-            check_flash_attention(dev), check_linear_scan(dev),
+            check_window_join_emit(dev), check_flash_attention(dev),
+            check_linear_scan(dev),
             check_flash_attention_bwd(dev), check_linear_scan_bwd(dev)]
     emit(dict(phase="kernels", seconds=time.perf_counter() - t0,
               kernels=rows))
@@ -4876,7 +4991,8 @@ def main(argv) -> int:
                              "push_cases",
                              "max_abs_err_bf16", "kernels_per_call",
                              "hot_cell_hits", "even", "q3",
-                             "no_hits_device_ms") if k in r})
+                             "no_hits_device_ms", "all_rows", "no_rows")
+                 if k in r})
         for r in rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

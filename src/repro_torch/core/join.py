@@ -10,7 +10,12 @@ oracle) and ``tick_fast``, the blocked whole-tick compare.
 ``band_join_counts`` is the counting-only compare through the
 ``window_join`` kernel.  ``tick_fast`` has the reference's two layouts:
 monolithic (all K rows, ``resp`` masks) and sliced (``k_global`` /
-``k_offset``: one mesh shard's contiguous row block).
+``k_offset``: one mesh shard's contiguous row block).  Its phase 1 (the
+incoming block against the stored rings) runs through the
+``window_join_emit`` kernel for a ``BandPredicate``, which reads only the
+instance's own rows; any other predicate, a Python callable the kernel
+cannot evaluate, takes dense ``[B, K, R]`` masks (``DENSE_PHASE1_CALLS``
+counts those calls).
 """
 
 from __future__ import annotations
@@ -27,15 +32,31 @@ from repro_torch.core.operator import (OperatorDef, Outputs, Tup,
                                        compacted_outputs)
 from repro_torch.core.watermark import INF_TIME
 from repro_torch.core.windows import SINGLE, WindowSpec
-from repro_torch.kernels.window_join.ops import window_join_op
+from repro_torch.kernels.window_join.ops import (window_join_emit_op,
+                                                 window_join_op)
+
+# tick_fast calls whose phase 1 took the dense masks (a predicate other
+# than a BandPredicate)
+DENSE_PHASE1_CALLS = 0
 
 
-def band_predicate(width: float = 10.0, attrs: int = 2) -> Callable:
+@dataclasses.dataclass(frozen=True)
+class BandPredicate:
+    """Q3 predicate: |phi_L[i] - phi_R[i]| <= width for the first ``attrs``.
+    A value ``tick_fast`` can read, so its phase 1 runs in the
+    ``window_join_emit`` kernel (the same float32 subtraction and compare a
+    column)."""
+    width: float = 10.0
+    attrs: int = 2
+
+    def __call__(self, pl, pr):
+        d = (pl[..., :self.attrs] - pr[..., :self.attrs]).abs()
+        return (d <= self.width).all(dim=-1)
+
+
+def band_predicate(width: float = 10.0, attrs: int = 2) -> BandPredicate:
     """Q3 predicate: |phi_L[i] - phi_R[i]| <= width for the first ``attrs``."""
-    def f_j(pl, pr):
-        d = (pl[..., :attrs] - pr[..., :attrs]).abs()
-        return (d <= width).all(dim=-1)
-    return f_j
+    return BandPredicate(width, attrs)
 
 
 def hedge_predicate(lo: float = -1.05, hi: float = -0.95) -> Callable:
@@ -155,6 +176,26 @@ def band_join_counts(st: FastJoinState, ready: T.TupleBatch,
                           st.pay, ws=window.ws, band=band, n_attrs=n_attrs)
 
 
+def _dense_phase1(window: WindowSpec, f_j: Callable, st: FastJoinState,
+                  ready: T.TupleBatch, live_in: torch.Tensor,
+                  resp: torch.Tensor, out_cap: int, emit: bool):
+    """Phase 1 for any predicate, as ``window_join_emit``'s contract: dense
+    ``[B, K, R]`` masks over every stored slot, then ``resp``.  A counting
+    tick skips the predicate and returns no rows."""
+    global DENSE_PHASE1_CALLS
+    DENSE_PHASE1_CALLS += 1
+    fresh = st.tau[None] + window.ws >= ready.tau[:, None, None]
+    stored_live = (st.tau[None] >= 0) & fresh            # [B, K, R]
+    opp = stored_live & (st.stream[None] != ready.source[:, None, None])
+    opp = opp & resp[None, :, None] & live_in[:, None, None]
+    if not emit:
+        return None, None, opp.sum()
+    hit1 = opp & _directed(f_j, ready.payload[:, None, None, :],
+                           ready.source[:, None, None], st.pay[None])
+    rows1, _, n1 = compact(hit1.reshape(-1), out_cap)
+    return rows1, n1, opp.sum()
+
+
 def tick_fast(window: WindowSpec, f_j: Callable, st: FastJoinState,
               ready: T.TupleBatch, resp: torch.Tensor, out_cap: int,
               emit: bool = True, k_global: int = None,
@@ -171,9 +212,10 @@ def tick_fast(window: WindowSpec, f_j: Callable, st: FastJoinState,
     tick).
 
     Outputs are appended in the reference's order: phase-1 hits by
-    ``(b, k, r)``, then phase-2 hits by ``(later, earlier)``, through one
-    fixed-size emission (``operator.compact``): no shape depends on the
-    data and nothing is read back to the host.
+    ``(b, k, r)``, then phase-2 hits by ``(later, earlier)``, in one
+    fixed-size emission (phase 1's rows from ``window_join_emit`` or the
+    dense masks, phase 2's from ``operator.compact``): no shape depends on
+    the data and nothing is read back to the host.
     """
     k_virt, ring = st.tau.shape
     kg = k_virt if k_global is None else k_global
@@ -191,11 +233,15 @@ def tick_fast(window: WindowSpec, f_j: Callable, st: FastJoinState,
     store_key = (store_g - k_offset).clamp(0, k_virt - 1).long()
 
     # --- phase 1: incoming block vs stored rings (resp rows only) ---------
-    fresh = st.tau[None] + window.ws >= ready.tau[:, None, None]
-    stored_live = (st.tau[None] >= 0) & fresh            # [B, K, R]
-    opp = stored_live & (st.stream[None] != ready.source[:, None, None])
-    opp = opp & resp[None, :, None] & live_in[:, None, None]
-    comps1 = opp.sum()
+    if isinstance(f_j, BandPredicate):
+        rows1, n1, comps1 = window_join_emit_op(
+            ready.tau, ready.source, ready.payload, live_in, st.tau,
+            st.stream, st.pay, resp, ws=window.ws, band=float(f_j.width),
+            n_attrs=ready.payload[:, :f_j.attrs].shape[-1],
+            out_cap=out_cap if emit else 0)
+    else:
+        rows1, n1, comps1 = _dense_phase1(window, f_j, st, ready, live_in,
+                                          resp, out_cap, emit)
 
     # --- phase 2: in-block cross-stream upper triangle ---------------------
     ii = torch.arange(b, device=dev)
@@ -210,21 +256,23 @@ def tick_fast(window: WindowSpec, f_j: Callable, st: FastJoinState,
     # The predicates only decide outputs: a counting tick skips them.
     outs = _empty_outputs(out_cap, 2 * p, dev)
     if emit:
-        hit1 = opp & _directed(f_j, ready.payload[:, None, None, :],
-                               ready.source[:, None, None], st.pay[None])
         within = ready.tau[:, None] - ready.tau[None, :] <= window.ws
         hit2 = pair & within & _directed(f_j, ready.payload[:, None, :],
                                          ready.source[:, None],
                                          ready.payload[None])
-        # one fixed-size emission over both phases' hit masks, in row
-        # order: (b, k, r) of phase 1, then (i, j) of phase 2
-        n1 = b * k_virt * ring
-        rows, ok, n = compact(torch.cat([hit1.reshape(-1), hit2.reshape(-1)]),
-                              out_cap)
-        first = rows < n1
-        r1 = rows.clamp(max=n1 - 1)
+        rows2, _, n2 = compact(hit2.reshape(-1), out_cap)
+        # one fixed-size emission over both phases, in row order: phase 1's
+        # (b, k, r) rows, then phase 2's (i, j) rows from lane n1
+        all1 = b * k_virt * ring
+        lane = torch.arange(out_cap, device=dev)
+        rows = torch.where(lane < n1, rows1,
+                           all1 + rows2[(lane - n1).clamp(0, out_cap - 1)])
+        n = n1 + n2
+        ok = lane < n
+        first = rows < all1
+        r1 = rows.clamp(max=all1 - 1)
         ki, ri = r1 // ring % k_virt, r1 % ring
-        r2 = (rows - n1).clamp(min=0)
+        r2 = (rows - all1).clamp(min=0)
         left = torch.where(first, r1 // (k_virt * ring), r2 // b)
         right = torch.where(first[:, None], st.pay[ki, ri],
                             ready.payload[r2 % b])

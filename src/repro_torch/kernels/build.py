@@ -56,6 +56,12 @@ PROTOTYPES = {
     # ws, band, n_attrs, counts, comps, stream
     "repro_window_join": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I,
                           ctypes.c_float, _I, _P, _P, _P),
+    # new_tau, new_src, new_pay, new_live, b, p, st_tau, st_src, st_pay,
+    # resp, k, r, ws, band, n_attrs, out_cap, scratch, scratch bytes, rows,
+    # n1, comps, stream
+    "repro_window_join_emit": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
+                               _I, _I, ctypes.c_float, _I, _I, _P,
+                               ctypes.c_longlong, _P, _P, _P, _P),
     # one packed argument block (flash_attention/ops.py ARGS)
     "repro_flash_attention": (ctypes.c_char_p,),
     # r, k, v, w, u, u_rows, s0, o, s_out, bh, t_len, dk, dv, chunk, stream

@@ -10,7 +10,8 @@ version; a CUDA launch that fails raises.
 A backward kernel (``flash_attention_bwd``, ``linear_scan_bwd``) is an
 entry like any other; its ``replaces`` names the reference function whose
 ``jax.grad`` it computes, since the reference has no backward Pallas
-kernel.
+kernel.  ``window_join_emit`` names the reference function whose phase 1
+it computes, which the reference leaves to XLA.
 
 Each entry counts its launches in a plain integer, ``Kernel.launches``,
 incremented once per kernel launch and nowhere else, so a run can show that
@@ -48,9 +49,9 @@ class Kernel:
     plain: Callable      # plain PyTorch version (CPU tensors)
     cuda: Callable       # launcher of the CUDA kernel (CUDA tensors)
     replaces: str        # file:line of the Pallas TPU kernel it replaces;
-                         # a backward kernel, which no Pallas kernel has,
-                         # names the reference function whose jax.grad
-                         # it computes
+                         # a kernel no Pallas kernel has names the
+                         # reference function whose jax.grad, or a part
+                         # of which, it computes
     source: str          # CUDA source, relative to the repo root
     meta: Optional[Callable] = None   # output shapes, for tracing on meta
     launches: int = 0

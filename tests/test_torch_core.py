@@ -334,6 +334,90 @@ def test_scalejoin_general_tick_matches_reference():
     assert matches > 0
 
 
+@pytest.mark.parametrize("emit", [True, False])
+@pytest.mark.parametrize("layout", ["monolithic", "sliced"])
+def test_join_tick_fast_band_path_equals_dense_path(layout, emit):
+    """``tick_fast`` with a ``BandPredicate`` (phase 1 through
+    ``window_join_emit``) equals it with the same test as a plain callable
+    (phase 1 in dense masks), state and outputs, on both layouts and both
+    ways of ``emit``; invalid and control lanes, an ``out_cap`` the hits
+    overflow on some ticks.  Only the callable takes the dense path."""
+    k, ring, cap = 24, 4, 12
+    kg, ko = (None, 0) if layout == "monolithic" else (72, 24)
+    ws = PWS(wa=1, ws=20_000, wt="single")
+    band = PJ.band_predicate(2500.0, 2)
+    rng = np.random.default_rng(30)
+    got = want = PJ.fast_join_init(k, ring, 4, CPU)
+    for b in _join_stream(6, 16):
+        b = to_port(b)
+        b = dataclasses.replace(
+            b, valid=torch.from_numpy(rng.random(16) < 0.9),
+            is_control=torch.from_numpy(rng.random(16) < 0.1))
+        resp = (torch.from_numpy(rng.random(k) < 0.6) if kg is None
+                else torch.ones(k, dtype=torch.bool))
+        before = PJ.DENSE_PHASE1_CALLS
+        got, go = PJ.tick_fast(ws, band, got, b, resp, cap, emit=emit,
+                               k_global=kg, k_offset=ko)
+        assert PJ.DENSE_PHASE1_CALLS == before
+        want, wo = PJ.tick_fast(ws, lambda pl, pr: band(pl, pr), want, b,
+                                resp, cap, emit=emit, k_global=kg,
+                                k_offset=ko)
+        assert PJ.DENSE_PHASE1_CALLS == before + 1
+        assert_tree_equal(np_tree(go), np_tree(wo))
+        assert_tree_equal(np_tree(got), np_tree(want))
+    assert float(got.comparisons) > 0
+    if emit:
+        assert int(go.count) > 0
+
+
+@pytest.mark.parametrize("width,attrs", [(10.0, 2), (3.0, 1), (2500.0, 4),
+                                         (5.0, 9)])
+def test_band_predicate_equals_the_closure_and_reference(width, attrs):
+    """``BandPredicate`` called directly equals the closure it replaced and
+    the reference's ``band_predicate``, broadcast as ``_directed`` calls
+    it; ``attrs`` past the payload takes every column."""
+    def closure(pl, pr):
+        d = (pl[..., :attrs] - pr[..., :attrs]).abs()
+        return (d <= width).all(dim=-1)
+
+    rng = np.random.default_rng(attrs)
+    hi = int(4 * width)                 # some pairs in the band, not all
+    pl = rng.integers(0, hi, (6, 1, 1, 4)).astype(np.float32)
+    pr = rng.integers(0, hi, (1, 5, 3, 4)).astype(np.float32)
+    got = PJ.band_predicate(width, attrs)(torch.from_numpy(pl),
+                                          torch.from_numpy(pr))
+    assert isinstance(PJ.band_predicate(width, attrs), PJ.BandPredicate)
+    np.testing.assert_array_equal(
+        got.numpy(), closure(torch.from_numpy(pl), torch.from_numpy(pr)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        JJ.band_predicate(width, attrs)(jnp.asarray(pl), jnp.asarray(pr))))
+    assert got.any() and not got.all()
+
+
+def test_hedge_predicate_takes_the_dense_path_and_matches_reference():
+    """Q6's predicate is no ``BandPredicate``: ``tick_fast`` runs its phase
+    1 in dense masks (the counter rises each call) and equals the
+    reference, outputs and state."""
+    k, ring = 16, 6
+    ws, pws = JWS(1, 5_000, "single"), PWS(1, 5_000, "single")
+    resp = np.arange(k) % 3 != 0
+    jst, pst = JJ.fast_join_init(k, ring, 2), PJ.fast_join_init(k, ring, 2,
+                                                                CPU)
+    before = PJ.DENSE_PHASE1_CALLS
+    matches = 0
+    for i, b in enumerate(jdg.nyse(np.random.default_rng(8), n_ticks=5,
+                                   tick=16, n_companies=4, k_virt=1)):
+        jst, jo = JJ.tick_fast(ws, JJ.hedge_predicate(-1.5, -0.5), jst, b,
+                               jnp.asarray(resp), out_cap=64)
+        pst, po = PJ.tick_fast(pws, PJ.hedge_predicate(-1.5, -0.5), pst,
+                               to_port(b), torch.from_numpy(resp), out_cap=64)
+        assert PJ.DENSE_PHASE1_CALLS == before + i + 1
+        assert_tree_equal(np_tree(jo), np_tree(po))
+        assert_tree_equal(np_tree(jst), np_tree(pst))
+        matches += int(po.count)
+    assert matches > 0
+
+
 # ------------------------------------------------- smaller ported pieces
 def test_table1_defaults_match_reference():
     """An operator with no user functions gets Table 1's defaults (store

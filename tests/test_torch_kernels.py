@@ -28,7 +28,8 @@ from repro_torch.kernels.scalegate_merge.ops import scalegate_merge_op
 from repro_torch.kernels.segment_aggregate import ops as segment_aggregate_ops
 from repro_torch.kernels.segment_aggregate.ops import segment_aggregate_op
 from repro_torch.kernels.window_join import ops as window_join_ops
-from repro_torch.kernels.window_join.ops import window_join_op
+from repro_torch.kernels.window_join.ops import (window_join_emit_op,
+                                                 window_join_op)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 INF = np.iinfo(np.int32).max
@@ -248,6 +249,43 @@ def test_window_join_plain_equals_pallas_on_edges(name):
     assert int(jn) == int(pn) > 0
 
 
+@pytest.mark.parametrize("name", ["r1", "r17", "r33", "rotated_stale_and_empty",
+                                  "horizon_wraps",
+                                  "incoming_inf_zero_negative"])
+def test_window_join_emit_plain_agrees_with_window_join(name):
+    """The phase-1 entry's plain version against the counting entry's (held
+    to the Pallas kernel above) on the same edges: its hits on the resp
+    rows are the counts there, its comparisons the live lanes' pairs
+    there, and its rows, decoded to (b, k), give the counts again, in
+    ascending order, cut at ``out_cap``."""
+    a, ws = _chip_smoke().join_edge_cases(np.random.default_rng(22))[name]
+    rng = np.random.default_rng(len(name))
+    b, (k, r) = a[0].shape[0], a[3].shape
+    live = rng.random(b) < 0.8
+    resp = rng.random(k) < 0.6
+    t = [torch.from_numpy(x) for x in a]
+    counts, _ = window_join_op(*t, ws=ws, band=10.0, n_attrs=2)
+    lv, rs = torch.from_numpy(live), torch.from_numpy(resp)
+    _, comps = window_join_op(*(x[lv] for x in t[:3]),
+                              *(x[rs] for x in t[3:]), ws=ws, band=10.0,
+                              n_attrs=2)
+    want = counts.numpy() * live[:, None] * resp[None, :]
+    cap = int(want.sum())
+    emit = lambda cap: window_join_emit_op(
+        *t[:3], lv, *t[3:], rs, ws=ws, band=10.0, n_attrs=2, out_cap=cap)
+    rows, n1, got_comps = emit(cap + 3)
+    assert int(n1) == cap > 0
+    assert int(got_comps) == int(comps) > 0
+    rows = rows.numpy()
+    assert (rows[cap:] == -1).all() and (np.diff(rows[:cap]) > 0).all()
+    hits = np.zeros((b, k), np.int64)
+    np.add.at(hits, (rows[:cap] // (k * r), rows[:cap] // r % k), 1)
+    np.testing.assert_array_equal(hits, want)
+    head, n_head, _ = emit(cap // 2)
+    assert int(n_head) == cap
+    np.testing.assert_array_equal(head.numpy(), rows[:cap // 2])
+
+
 @pytest.mark.parametrize("b", [8, 13])
 def test_window_join_plain_equals_pallas(b):
     """Counts and comparisons exact; B = 13 is not a multiple of the
@@ -304,13 +342,15 @@ def test_window_join_plain_equals_pallas_on_every_attribute():
 def test_registry_sends_cpu_tensors_to_the_plain_version():
     reg = dispatch.registered()
     assert set(reg) >= {"scalegate_merge", "segment_aggregate", "window_join"}
-    grad_of = "jax.grad of "
+    named = ("jax.grad of ", "none, phase 1 of ")
     for kern in reg.values():
         assert (ROOT / kern.source).is_file()
-        if kern.replaces.startswith(grad_of):
-            # a backward kernel, which no Pallas kernel has: the reference
-            # function whose jax.grad it computes, "path:line name"
-            path, at = kern.replaces[len(grad_of):].split(":")
+        prefix = next((p for p in named if kern.replaces.startswith(p)), None)
+        if prefix:
+            # a kernel no Pallas kernel has (a backward kernel, the fast
+            # join's phase 1): the reference function whose jax.grad, or a
+            # part of which, it computes, "path:line name"
+            path, at = kern.replaces[len(prefix):].split(":")
             line, fn = at.split()
         else:
             (path, line), fn = kern.replaces.split(":"), kern.name
@@ -323,6 +363,11 @@ def test_registry_sends_cpu_tensors_to_the_plain_version():
     window_join_op(t, t, torch.zeros(4, 2), torch.zeros(3, 2, dtype=torch.int32),
                    torch.zeros(3, 2, dtype=torch.int32), torch.zeros(3, 2, 2),
                    ws=5)
+    window_join_emit_op(t, t, torch.zeros(4, 2), torch.ones(4, dtype=torch.bool),
+                        torch.zeros(3, 2, dtype=torch.int32),
+                        torch.zeros(3, 2, dtype=torch.int32),
+                        torch.zeros(3, 2, 2), torch.ones(3, dtype=torch.bool),
+                        ws=5, out_cap=4)
     assert {n: k.launches for n, k in reg.items()} == before
 
 
